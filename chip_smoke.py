@@ -5,10 +5,10 @@
 
 Phases, each of which fails the run (non-zero exit) on its own:
 
-1. build    every kernel of the path from ``paddle_tpu_torch/csrc`` (one
+1. build    every kernel of the paths from ``paddle_tpu_torch/csrc`` (one
             ``nvcc`` per source, all started together);
-2. kernels  each kernel, through the wrapper the model calls, against its
-            plain PyTorch version on the card, at the serving path's
+2. kernels  the flash forward, through the wrapper the model calls, against
+            its plain PyTorch version on the card, at the serving path's
             shapes, in float32 (TF32 off) and bfloat16, with a fully
             masked row and a causal case;
 3. serving  Transformer-base (full width, 6+6 layers, bf16, flash
@@ -22,7 +22,7 @@ Phases, each of which fails the run (non-zero exit) on its own:
             through the kernel and through its plain version must give
             identical tokens; in bf16 the per-step logit difference and the
             token agreement are reported;
-5. numbers  the kernel's device time (torch.profiler), its plain
+5. numbers  the forward kernel's device time (torch.profiler), its plain
             version's, and
             ``torch.nn.functional.scaled_dot_product_attention``'s as a
             yardstick (the port never calls it), at each path shape,
@@ -32,17 +32,50 @@ Phases, each of which fails the run (non-zero exit) on its own:
             ``generate()``: latency, tokens/s, the device's busy time and
             idle share, and the kernels that take the time.
 
+Then the training path, ``transformer_long`` at full width and depth
+(vocab 8192, 6+6 layers, d_model 512, 8 heads, remat saving the flash
+outputs, flash attention, batch 4 x 4096, Adam):
+
+T1. kernels  the flash backward's dq and dk/dv kernels against their plain
+             version at the path's flash shape [4*8, 4096, 4096, 64], at a
+             ragged masked shape and at a causal one, in float32 and
+             bfloat16 (and the forward at the path's shape); the fused
+             optimizer update against the plain unfused sweep (Adam on the
+             transformer_long parameters, SGD, Momentum with a global-norm
+             clip and AdamW on a small tree): moments bitwise, parameters
+             within 4 ulp;
+T2. train    three Adam steps in float32 with the fused update, three with
+             the unfused one, and three through the kernels' plain
+             versions, from the same state: every loss within 1e-4
+             relative of the plain route's; the first gradients (leaf by
+             leaf) and the parameters after step 3 within ``NOISE_FACTOR``
+             times the difference that reordering the keys makes in both
+             routes (two more runs), the key biases within
+             ``ADAM_PAIR_BOUND``; the parameters after step 1 equal
+             wherever the two gradients agree; kernel launches counted per
+             step (12
+             flash forward, 12 dq, 12 dk/dv, one fused update); loss and
+             gradients of remat "save_flash", "none" (24 forward launches)
+             and no remat held equal; three bf16 steps reported;
+T3. numbers  one profiled bf16 training step: step time, tokens/s, device
+             busy time and idle share, top kernels, and each kernel's
+             device time at the path's shape; beside it its bound, and its
+             plain version and a library yardstick that the port never
+             calls (SDPA forward and backward,
+             ``torch.optim.Adam(fused=True)``) timed with CUDA events.
+
 The last lines are the ``{"kernels": [...]}`` object, the card's name and
 power limit as ``nvidia-smi`` gives them, and the result object
 ``{"ok": true, "device": {...}}``. A full report goes to
-``chip_smoke_out/chip_smoke.json`` (``--out-dir``). Without a CUDA device, or without the
-``paddle_tpu_torch`` package beside this file, the script exits non-zero
-and prints no result.
+``chip_smoke_out/chip_smoke.json`` (``--out-dir``). Without a CUDA device,
+or without the ``paddle_tpu_torch`` package beside this file, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -67,7 +100,25 @@ KERNELS = {
         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/attention.py:272",
     },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "paddle_tpu/kernels/attention.py:345",
+    },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "paddle_tpu/kernels/attention.py:367",
+    },
+    "fused_update": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_update.cu",
+        "replaces": "paddle_tpu/kernels/fused_update.py:200",
+    },
 }
+# csrc/<name>.cu of every kernel above, one nvcc each
+SOURCES = sorted({os.path.basename(m["source"])[:-3]
+                  for m in KERNELS.values()})
 
 # (name, b, h, tq, tk, d, causal, mask): the serving path's attention shapes
 # at Transformer-base with 64x64 buckets, plus a causal Tq == Tk case
@@ -96,9 +147,16 @@ def fail(phase, msg):
 
 def make_mask(kind, b, tk, gen, dev):
     """padding: random source lengths 8..tk with row 0 all pad (as the
-    Generator's padded batch rows); prefix: a decode cache filled to half."""
+    Generator's padded batch rows); prefix: a decode cache filled to half;
+    all: every key kept (the training path's source mask); ragged: random
+    lengths 1..tk, so every row keeps a key."""
     if kind is None:
         return None
+    if kind == "all":
+        return torch.ones(b, tk, dtype=torch.bool, device=dev)
+    if kind == "ragged":
+        lens = torch.randint(1, tk + 1, (b,), generator=gen, device=dev)
+        return torch.arange(tk, device=dev)[None] < lens[:, None]
     if kind == "prefix":
         return (torch.arange(tk, device=dev) <= tk // 2)[None].expand(
             b, tk).contiguous()
@@ -129,9 +187,10 @@ def make_src(b, rs, max_len=64, min_len=8, vocab=32000):
 def phase_build():
     from paddle_tpu_torch.core import native_build
     t0 = time.perf_counter()
-    native_build.build(list(KERNELS))
+    native_build.build(SOURCES)
     seconds = time.perf_counter() - t0
-    log(f"[build] {len(KERNELS)} kernel source(s) built in {seconds:.2f} s")
+    log(f"[build] {len(SOURCES)} kernel sources built in parallel in "
+        f"{seconds:.2f} s")
     for name, info in native_build.build_info.items():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -297,26 +356,7 @@ def phase_serving(model, dev, seed, n_first=64, n_second=20, threads=4):
 
 # -- phase 4 ----------------------------------------------------------------
 
-class plain_attention:
-    """Route the model's flash attention to the kernel's plain version."""
-
-    def __enter__(self):
-        from paddle_tpu_torch.kernels.attention import \
-            flash_attention_reference
-        from paddle_tpu_torch.nn import attention as nn_attention
-        self.mod, self.saved = nn_attention, nn_attention.flash_attention
-
-        def plain(q, k, v, causal=False, scale=None, kv_mask=None,
-                  device=None):
-            return flash_attention_reference(q, k, v, causal, scale,
-                                             kv_mask)[0]
-        nn_attention.flash_attention = plain
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.flash_attention = self.saved
-
-
+@torch.no_grad()
 def step_logits(model, src, tokens):
     """Logits of every decode step, teacher-forced on ``tokens``."""
     dev = model.device
@@ -343,14 +383,14 @@ def phase_e2e(model_bf16, dev, seed):
         before = flash_attention.launches
         t_kernel = gen.generate(src)
         launched = flash_attention.launches - before
-        with plain_attention():
+        with plain_kernels():
             t_plain = gen.generate(src)
         if flash_attention.launches != before + launched or launched == 0:
             fail(4, "the kernel run did not launch, or the plain run did")
         same = float((t_kernel == t_plain).mean())
         rows_same = int((t_kernel == t_plain).all(axis=1).sum())
         lk = step_logits(model, src, t_kernel)
-        with plain_attention():
+        with plain_kernels():
             lp = step_logits(model, src, t_kernel)
         diffs = [(a - b).abs().max().item() for a, b in zip(lk, lp)]
         finite = all(bool(torch.isfinite(a).all()) for a in lk)
@@ -429,30 +469,36 @@ def _device_us(entry):
                    getattr(entry, "self_cuda_time_total", 0.0))
 
 
-def profiled(fn):
+def profiled(fn, label):
     """Run ``fn()`` under torch.profiler; returns (device time in ms summed
-    over every kernel and copy, [(name, count, device ms)] by time)."""
+    over every kernel and copy, [(name, count, device ms)] by time). A
+    session without device activity is logged; the caller fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.count, _device_us(e) / 1e3)
-            for e in prof.key_averages()
+    events = prof.key_averages()
+    rows = [(e.key, e.count, _device_us(e) / 1e3) for e in events
             if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not rows:
+        log(f"[profile] the session of {label} recorded no device activity "
+            f"({len(events)} event kinds, device types "
+            f"{sorted({str(e.device_type) for e in events})})")
     rows.sort(key=lambda r: -r[2])
     return sum(r[2] for r in rows), rows
 
 
-def device_ms(fn, arg_sets, iters):
+def device_ms(fn, arg_sets, iters, label):
     """Device time of one call (all its kernels), from the profiler."""
     def run():
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
-    total, _ = profiled(run)
+    total, _ = profiled(run, label)
     if total <= 0:
-        fail(5, "torch.profiler recorded no device time")
+        fail(5, f"torch.profiler recorded no device time for {label}")
     return total / iters
 
 
@@ -484,7 +530,8 @@ def phase_numbers(dev, seed, iters=200):
                     q, k, v, attn_mask=m, scale=scale), lib_sets),
             }
             call = {k: time_ms(f, a, iters) for k, (f, a) in fns.items()}
-            t = {k: device_ms(f, a, iters) for k, (f, a) in fns.items()}
+            t = {k: device_ms(f, a, iters, f"{name} {k}")
+                 for k, (f, a) in fns.items()}
             # the calls cycle through the sets: the bound of the mean call
             work = [attention_bound(q, k, m, causal) for q, k, _, m in sets]
             nbytes = sum(w[0] for w in work) / len(work)
@@ -530,7 +577,7 @@ def phase_generate_profile(model, dev, seed, use_bf16, repeats=3):
         lat.append(gen.last_latency_ms)
         tps.append(gen.last_tokens_per_s)
     before = flash_attention.launches
-    busy, kernels = profiled(lambda: gen.generate(src))
+    busy, kernels = profiled(lambda: gen.generate(src), "generate()")
     launches = flash_attention.launches - before
     if busy <= 0:
         fail(5, "torch.profiler recorded no device time for generate()")
@@ -553,6 +600,726 @@ def phase_generate_profile(model, dev, seed, use_bf16, repeats=3):
     for n, c, t in kernels[:12]:
         log(f"[numbers]   {t:9.3f} ms {c:6d}x  {n[:100]}")
     return out
+
+
+# -- training phases T1-T3 --------------------------------------------------
+#
+# transformer_long (benchmark/run_benchmarks.py:298-309) at full width and
+# depth: vocab 8192, 6+6 layers of d_model 512, d_inner 2048, 8 heads of 64,
+# per-layer remat saving the flash outputs, flash attention, batch 4 x 4096,
+# Adam(1e-3); label smoothing 0.1 (the config's default), dropout 0.
+
+LONG_CFG = dict(src_vocab_size=8192, trg_vocab_size=8192, max_length=4096,
+                d_model=512, d_inner=2048, n_head=8, n_layer=6, dropout=0.0,
+                remat=True, use_flash=True)
+LONG_BATCH, LONG_LEN, LR, STEPS = 4, 4096, 1e-3, 3
+# the path's flash shape (encoder self- and cross-attention), every key kept
+TRAIN_FLASH = ("train", 4, 8, 4096, 4096, 64, False, "all")
+BWD_CHECK_SHAPES = [
+    TRAIN_FLASH,
+    ("masked_ragged", 3, 4, 200, 300, 64, False, "ragged"),
+    ("causal", 2, 8, 512, 512, 64, True, None),
+]
+# relative to (1 + |plain|): float32 sums of up to 4096 terms in another
+# order; bfloat16 outputs round once more (2^-8 relative)
+BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ADAM_FLOPS_PER_ELEMENT = 14     # the kernel's Adam expression, per element
+# T2's float32 gates, kernel route against the plain route. The routes
+# differ only in the order of the attention's float32 sums, and a leaf's
+# gradient sums the terms of 16384 tokens, whose signs cancel: a rounding
+# of 1e-7 a term shows as ~1e-4 of the leaf. So the difference is held
+# against the same routes run with the keys in another order (the same
+# attention, its sums reordered), leaf by leaf: at most NOISE_FACTOR times
+# sqrt(|kernel - kernel'|^2 + |plain - plain'|^2), about 0.7 of it if the
+# routes differ by rounding alone.
+NOISE_FACTOR = 2.0
+# The key projections' biases have a true gradient of 0 (softmax ignores a
+# shift of every key's score), so each route's is rounding noise, held
+# below this share of its key weight's gradient norm:
+KEY_BIAS, KEY_BIAS_TOL = "k_proj/bias", 1e-4
+# After step 1: Adam's first step is lr * g / (|g| + eps), so an element
+# whose two gradients agree within STEP1_GRAD_AGREE (relative) moves by the
+# same amount within lr * STEP1_GRAD_AGREE / 4 plus a rounding of p:
+STEP1_GRAD_AGREE, STEP1_PARAM_TOL = 1e-3, 1e-6
+# After step 3, Adam steps about lr whatever a gradient's size, so small
+# gradients part first: the parameters other than the key biases are held
+# to NOISE_FACTOR as the gradients are (whole tree); the key biases, whose
+# gradient is all noise, may part by ADAM_PAIR_BOUND * lr a step (each run
+# moves by at most 1.004 lr a step in the first three, by Cauchy-Schwarz on
+# the bias-corrected moments).
+ADAM_PAIR_BOUND = 2.02
+
+
+_COUNTED = {}
+
+
+def counted_wrappers():
+    """The wrapper that counts each kernel's launches, taken once, before
+    ``plain_kernels`` swaps any of them out."""
+    if not _COUNTED:
+        from paddle_tpu_torch.kernels import attention as A
+        from paddle_tpu_torch.kernels import fused_update as FU
+        _COUNTED.update(flash_fwd=A.flash_attention,
+                        flash_bwd_dq=A.flash_bwd_dq_cuda,
+                        flash_bwd_dkv=A.flash_bwd_dkv_cuda,
+                        fused_update=FU.fused_update_step)
+    return _COUNTED
+
+
+def train_counts():
+    return {k: f.launches for k, f in counted_wrappers().items()}
+
+
+def zero_counts():
+    for f in counted_wrappers().values():
+        f.launches = 0
+
+
+class plain_kernels:
+    """Route the flash kernels to their plain versions, behind the same
+    wrappers, autograd op and remat policy."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import attention as A
+        counted_wrappers()
+        self.A = A
+        self.saved = (A.flash_fwd_cuda, A.flash_bwd_dq_cuda,
+                      A.flash_bwd_dkv_cuda)
+        A.flash_fwd_cuda = A.flash_attention_reference
+        A.flash_bwd_dq_cuda = \
+            lambda *a: A.flash_attention_bwd_reference(*a)[0]
+        A.flash_bwd_dkv_cuda = \
+            lambda *a: A.flash_attention_bwd_reference(*a)[1:]
+        return self
+
+    def __exit__(self, *exc):
+        (self.A.flash_fwd_cuda, self.A.flash_bwd_dq_cuda,
+         self.A.flash_bwd_dkv_cuda) = self.saved
+
+
+class permuted_keys:
+    """Feed the trainable flash op, whichever route it takes (kernels or
+    their plain versions), the keys, values and key mask in a fixed random
+    order; autograd puts dk and dv back. The same attention with its
+    float32 sums taken in another order. Non-causal calls only, as on the
+    training path."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import attention as A
+        self.A, self.op = A, A.flash_attn_op
+
+        def op_p(q, k, v, kv_mask, causal, scale):
+            # one order for every call, so a remat recompute sees the
+            # inputs of the forward whose outputs it reuses
+            assert not causal
+            gen = torch.Generator().manual_seed(self.seed)
+            p = torch.randperm(k.shape[2], generator=gen).to(k.device)
+            return self.op(q, k[:, :, p].contiguous(), v[:, :, p].contiguous(),
+                           None if kv_mask is None else
+                           kv_mask[:, p].contiguous(), causal, scale)
+
+        A.flash_attn_op = op_p
+        return self
+
+    def __exit__(self, *exc):
+        self.A.flash_attn_op = self.op
+
+
+def bwd_inputs(shape, dtype, dev, seed):
+    """q, k, v, mask, the output cotangent do, and the forward's lse and
+    dvec = sum_d(do * o), as the autograd route feeds the kernels."""
+    from paddle_tpu_torch.kernels.attention import flash_fwd_cuda
+    q, k, v, m = make_qkv(shape, dtype, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    do = torch.randn(q.shape, device=dev, generator=g).to(dtype)
+    o, lse = flash_fwd_cuda(q, k, v, shape[6], q.shape[-1] ** -0.5, m)
+    dvec = (do.float() * o.float()).sum(-1)
+    return q, k, v, m, do, lse, dvec
+
+
+def phase_train_kernels(dev, seed):
+    """T1a: dq and dkv against the plain version of the backward, and the
+    forward at the training shape against its plain version."""
+    from paddle_tpu_torch.kernels.attention import (
+        flash_attention_bwd_reference, flash_attention_reference,
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    results, worst = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in BWD_CHECK_SHAPES:
+            name, b, h, tq, tk, d, causal, _ = shape
+            q, k, v, m, do, lse, dvec = bwd_inputs(shape, dtype, dev, seed)
+            scale = d ** -0.5
+            if shape is TRAIN_FLASH:
+                o, _ = flash_fwd_cuda(q, k, v, causal, scale, m)
+                ro, rl = flash_attention_reference(q, k, v, causal, scale, m)
+                diff = (o.float() - ro.float()).abs()
+                o_err = (diff / (1 + ro.float().abs())).max().item()
+                lse_err = ((lse - rl).abs() / rl.abs().clamp(min=1)).max()
+                ok = o_err <= TOLERANCE[dtype] and lse_err.item() <= 1e-5
+                log(f"[T1] flash_fwd {str(dtype)[6:]:>8} {name:<14} "
+                    f"[{b},{h},{tq},{tk},{d}] max|o-plain| "
+                    f"{diff.max().item():.3e} rel {o_err:.3e} lse rel "
+                    f"{lse_err.item():.3e} {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail("T1", f"flash_fwd at the training shape: o {o_err}, "
+                               f"lse {lse_err.item()}")
+                if dtype == torch.bfloat16:
+                    worst["flash_fwd"] = diff.max().item()
+                del o, ro, rl, diff
+            dq = flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, m)
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale,
+                                        m)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, do, lse, dvec,
+                                                 causal, scale, m)
+            rec = {"case": name, "dtype": str(dtype).split(".")[-1],
+                   "shape": [b, h, tq, tk, d], "causal": causal}
+            ok = True
+            for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                diff = (got.float() - ref.float()).abs()
+                rel = (diff / (1 + ref.float().abs())).max().item()
+                rec[nm] = {"max_abs_err": diff.max().item(), "rel_err": rel}
+                ok = ok and bool(torch.isfinite(got).all()) and \
+                    rel <= BWD_TOLERANCE[dtype]
+            rec["ok"] = ok
+            results.append(rec)
+            log(f"[T1] flash_bwd {rec['dtype']:>8} {name:<14} "
+                f"[{b},{h},{tq},{tk},{d}] max|kernel-plain| dq "
+                f"{rec['dq']['max_abs_err']:.3e} dk "
+                f"{rec['dk']['max_abs_err']:.3e} dv "
+                f"{rec['dv']['max_abs_err']:.3e}; rel "
+                f"{max(rec[n]['rel_err'] for n in ('dq', 'dk', 'dv')):.3e} "
+                f"(tol {BWD_TOLERANCE[dtype]:g}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail("T1", f"flash_bwd {rec}")
+            if dtype == torch.bfloat16 and shape is TRAIN_FLASH:
+                worst["flash_bwd_dq"] = rec["dq"]["max_abs_err"]
+                worst["flash_bwd_dkv"] = max(rec["dk"]["max_abs_err"],
+                                             rec["dv"]["max_abs_err"])
+            del q, k, v, do, dq, dk, dv, want
+            torch.cuda.empty_cache()
+    return results, worst
+
+
+def small_tree(dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(300, 7), (70000,), (5,), (1, 131073)]
+    return {f"p{i}": torch.randn(s, device=dev, generator=g)
+            for i, s in enumerate(shapes)}
+
+
+def random_grads(params, seed):
+    g = torch.Generator(device=next(iter(params.values())).device)
+    g.manual_seed(seed)
+    return {k: torch.randn(p.shape, device=p.device, generator=g)
+            for k, p in params.items()}
+
+
+def phase_update_kernel(long_params, dev, seed):
+    """T1b: the fused update against the plain unfused sweep of the same
+    optimizer, two steps from the same state and gradients: moments
+    bitwise, parameters within 4 ulp. Adam on the transformer_long tree;
+    SGD, Momentum with a global-norm clip and AdamW on a small tree."""
+    from paddle_tpu_torch import optimizer as popt
+    small = small_tree(dev, seed)
+    cases = [
+        ("adam", popt.Adam(LR), long_params),
+        ("sgd", popt.SGD(0.1), small),
+        ("momentum_clip", popt.Momentum(0.1, 0.9, grad_clip=(
+            popt.GradientClipByGlobalNorm(1.0))), small),
+        ("adamw", popt.AdamW(LR, weight_decay=0.01), small),
+    ]
+    results, worst = [], None
+    for name, opt, tree in cases:
+        runs = {}
+        for fused in (True, False):
+            params = {k: t.detach().clone() for k, t in tree.items()}
+            state = opt.init(params)
+            for step in range(2):
+                opt.apply_gradients(params, random_grads(params, seed + step),
+                                    state, fused=fused)
+            runs[fused] = (params, state)
+        torch.cuda.synchronize()
+        (fp, fs), (pp, ps) = runs[True], runs[False]
+        accs = [nm for nm in fs if nm != "step"]
+        acc_equal = all(torch.equal(fs[nm][k], ps[nm][k])
+                        for nm in accs for k in fp)
+        ulp = max((fp[k].view(torch.int32).long()
+                   - pp[k].view(torch.int32).long()).abs().max().item()
+                  for k in fp)
+        err = max((fp[k] - pp[k]).abs().max().item() for k in fp)
+        n = sum(p.numel() for p in fp.values())
+        rec = {"case": name, "elements": n, "moments_bitwise": acc_equal,
+               "max_param_ulp": ulp, "max_abs_err": err,
+               "ok": acc_equal and ulp <= 4}
+        results.append(rec)
+        log(f"[T1] fused_update {name:<14} {n} elements, 2 steps vs the "
+            f"plain sweep: moments bitwise {acc_equal}, params max {ulp} "
+            f"ulp (max|diff| {err:.3e}) {'ok' if rec['ok'] else 'MISMATCH'}")
+        if not rec["ok"]:
+            fail("T1", f"fused_update {rec}")
+        if name == "adam":
+            worst = err
+        del runs, fp, fs, pp, ps
+    torch.cuda.empty_cache()
+    return results, worst
+
+
+def long_model(dtype, dev, seed):
+    from paddle_tpu_torch.models import Transformer, TransformerConfig
+    model = Transformer(TransformerConfig(dtype=dtype, **LONG_CFG),
+                        device=dev, seed=seed)
+    return model.train()
+
+
+def long_batch(dev, seed):
+    """src, trg and labels: token ids in 3..8191 from the seed; every
+    position real (all-true source and label masks)."""
+    rs = np.random.RandomState(seed)
+    ids = [torch.from_numpy(rs.randint(3, LONG_CFG["src_vocab_size"],
+                                       (LONG_BATCH, LONG_LEN))
+                            .astype(np.int32)).to(dev) for _ in range(3)]
+    lmask = torch.ones(LONG_BATCH, LONG_LEN, dtype=torch.bool, device=dev)
+    return (*ids, lmask)
+
+
+def loss_fn_for(model, batch):
+    src, trg, labels, lmask = batch
+    return lambda params: model.loss(model(src, trg), labels, lmask)
+
+
+def train_steps(model, batch, steps, fused, expect):
+    """``steps`` Adam steps through ``Optimizer.minimize``; every step's
+    kernel launches must equal ``expect``. Returns (losses, a copy of the
+    parameters after each step)."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.convert import param_tree
+    params = param_tree(model)
+    opt = popt.Adam(LR)
+    state = opt.init(params)
+    loss_fn = loss_fn_for(model, batch)
+    losses, snaps = [], []
+    for i in range(steps):
+        before = train_counts()
+        loss, _, _, _ = opt.minimize(loss_fn, params, state, fused=fused)
+        losses.append(loss.item())
+        got = {k: v - before[k] for k, v in train_counts().items()}
+        if got != expect:
+            fail("T2", f"step {i} launched {got}, expected {expect}")
+        if not math.isfinite(losses[-1]):
+            fail("T2", f"step {i} loss {losses[-1]}")
+        snaps.append({k: p.detach().clone() for k, p in params.items()})
+    return losses, snaps
+
+
+class cfg_override:
+    """Run the model with some config fields changed."""
+
+    def __init__(self, model, **kw):
+        self.model, self.kw = model, kw
+
+    def __enter__(self):
+        import copy
+        self.saved = self.model.cfg
+        self.model.cfg = copy.copy(self.saved)
+        vars(self.model.cfg).update(self.kw)
+
+    def __exit__(self, *exc):
+        self.model.cfg = self.saved
+
+
+def route(name, seed):
+    """The flash route of a T2 run: "kernel" or "plain", and either with
+    "_perm" (keys in another order)."""
+    stack = contextlib.ExitStack()
+    if name.startswith("plain"):
+        stack.enter_context(plain_kernels())
+    if name.endswith("_perm"):
+        stack.enter_context(permuted_keys(seed))
+    return stack
+
+
+def initial_grads(model32, init, batch, per_step, calls, seed):
+    """Loss and gradients at the initial state under each remat policy and
+    through each route, kernel launches checked. Returns them and the
+    launches of the main path's runs (the remat policies)."""
+    from paddle_tpu_torch.convert import param_tree
+    grads, counts = {}, {k: 0 for k in per_step}
+    for name, kw, rt, fwd in (
+            ("save_flash", {}, "kernel", calls),
+            ("none", {"remat_policy": "none"}, "kernel", 2 * calls),
+            ("no_remat", {"remat": False}, "kernel", calls),
+            ("kernel_perm", {}, "kernel_perm", calls),
+            ("plain", {}, "plain", 0),
+            ("plain_perm", {}, "plain_perm", 0)):
+        model32.load_state_dict(init)
+        with cfg_override(model32, **kw), route(rt, seed):
+            params = param_tree(model32)
+            before = train_counts()
+            loss = loss_fn_for(model32, batch)(params)
+            g = torch.autograd.grad(loss, list(params.values()))
+            got = {k: v - before[k] for k, v in train_counts().items()}
+        expect = dict(per_step, flash_fwd=fwd, fused_update=0) if fwd else \
+            {k: 0 for k in per_step}
+        if got != expect:
+            fail("T2", f"gradients {name}: launched {got}, expected {expect}")
+        if name in ("save_flash", "none", "no_remat"):
+            for k, v in got.items():
+                counts[k] += v
+        grads[name] = (loss.detach(), dict(zip(params, g)))
+        log(f"[T2] gradients {name}: loss {loss.item():.6f}, launches {got}")
+    return grads, counts
+
+
+def tree_dist(a, b, keys):
+    return math.sqrt(sum((a[k] - b[k]).double().square().sum().item()
+                         for k in keys))
+
+
+def check_grads(grads):
+    """T2's gradient gate: every leaf's kernel-vs-plain difference within
+    NOISE_FACTOR of the reordered runs' (see there); the key biases, whose
+    true gradient is 0, below KEY_BIAS_TOL of their weights'."""
+    gk, gk2, gp, gp2 = (grads[n][1] for n in
+                        ("save_flash", "kernel_perm", "plain", "plain_perm"))
+    ratio, rel, key_bias = {}, {}, {}
+    for k in gp:
+        if k.endswith(KEY_BIAS):
+            w = k[:-len("bias")] + "weight"
+            key_bias[k] = max((g[k].norm() / g[w].norm()).item()
+                              for g in (gk, gp))
+            continue
+        d = tree_dist(gk, gp, [k])
+        noise = math.hypot(tree_dist(gk, gk2, [k]), tree_dist(gp, gp2, [k]))
+        ratio[k] = d / max(noise, 1e-30)
+        rel[k] = d / max(gp[k].norm().item(), 1e-30)
+    worst = max(ratio, key=ratio.get)
+    worst_kb = max(key_bias, key=key_bias.get)
+    out = {"worst_leaf": worst, "worst_noise_ratio": ratio[worst],
+           "median_noise_ratio": float(np.median(list(ratio.values()))),
+           "worst_rel_diff": max(rel.values()),
+           "median_rel_diff": float(np.median(list(rel.values()))),
+           "key_bias_worst_leaf": worst_kb,
+           "key_bias_over_weight": key_bias[worst_kb],
+           "leaves": {k: [rel[k], ratio[k]] for k in rel}}
+    log(f"[T2] float32 gradients at the initial state, kernel vs plain "
+        f"route, leaf by leaf: |dg|/|g| median {out['median_rel_diff']:.2e}, "
+        f"worst {out['worst_rel_diff']:.2e}; against the reordered runs' "
+        f"difference median {out['median_noise_ratio']:.2f}, worst "
+        f"{ratio[worst]:.2f} ({worst}; tol {NOISE_FACTOR:g}); key biases "
+        f"|g|/|g_weight| at most {key_bias[worst_kb]:.2e} (tol "
+        f"{KEY_BIAS_TOL:g})")
+    if ratio[worst] > NOISE_FACTOR or key_bias[worst_kb] > KEY_BIAS_TOL:
+        fail("T2", f"gradients of the kernel route disagree with the plain "
+                   f"route: {worst} {ratio[worst]}, {worst_kb} "
+                   f"{key_bias[worst_kb]}")
+    return out
+
+
+def compare_params(runs, kernel, gk, gp):
+    """T2's parameter gates for the kernel route ``runs[kernel]`` against
+    the plain route (see STEP1_* and ADAM_PAIR_BOUND), and where the
+    elements that part by more than 1e-5 after the last step lie: by
+    leaf, and by the size of their first gradient against their leaf's
+    rms."""
+    snaps, plain = runs[kernel][1], runs["plain"][1]
+    p1, pp1, p3, pp3 = snaps[0], plain[0], snaps[-1], plain[-1]
+    unexplained = noisy = step1_apart = 0
+    for k in gp:
+        d = (p1[k] - pp1[k]).abs()
+        settled = (gk[k] - gp[k]).abs() <= STEP1_GRAD_AGREE * gp[k].abs()
+        unexplained += int((settled & (d > STEP1_PARAM_TOL)).sum())
+        noisy += int((~settled).sum())
+        step1_apart += int((d > STEP1_PARAM_TOL).sum())
+    n = sum(p.numel() for p in gp.values())
+    apart, small, small_all, key_bias_max = {}, 0, 0, 0.0
+    for k in gp:
+        d = (p3[k] - pp3[k]).abs()
+        far = d > 1e-5
+        apart[k] = int(far.sum())
+        r = gp[k].abs() < 0.1 * gp[k].square().mean().sqrt()
+        small += int((far & r).sum())
+        small_all += int(r.sum())
+        if k.endswith(KEY_BIAS):
+            key_bias_max = max(key_bias_max, d.max().item())
+    rest = [k for k in gp if not k.endswith(KEY_BIAS)]
+    noise = math.hypot(tree_dist(runs["kernel_perm"][1][-1], runs[True][1][-1],
+                                 rest),
+                       tree_dist(runs["plain_perm"][1][-1], pp3, rest))
+    total = sum(apart.values())
+    top = sorted(apart, key=apart.get, reverse=True)[:5]
+    return {
+        "step1": {"elements_apart": step1_apart,
+                  "noisy_grad_elements": noisy, "unexplained": unexplained},
+        "share_above_1e-5": total / n,
+        "max_abs_diff": max((p3[k] - pp3[k]).abs().max().item() for k in gp),
+        "key_bias_max_abs_diff": key_bias_max,
+        "key_bias_share_of_apart": sum(v for k, v in apart.items()
+                                       if k.endswith(KEY_BIAS))
+        / max(total, 1),
+        "noise_ratio": tree_dist(p3, pp3, rest) / max(noise, 1e-30),
+        "top_leaves_apart": {k: apart[k] / p3[k].numel() for k in top},
+        "small_grad_share_of_apart": small / max(total, 1),
+        "small_grad_share_of_all": small_all / n}
+
+
+def phase_train(model32, dev, seed):
+    """T2: training end to end at full width and depth."""
+    batch = long_batch(dev, seed)
+    init = {k: v.detach().clone() for k, v in model32.state_dict().items()}
+    # one flash call per encoder layer and per cross-attention: 12
+    calls = 2 * LONG_CFG["n_layer"]
+    per_step = {"flash_fwd": calls, "flash_bwd_dq": calls,
+                "flash_bwd_dkv": calls, "fused_update": 1}
+    zero_counts()
+    out, runs = {}, {}
+    for fused in (True, False):
+        model32.load_state_dict(init)
+        runs[fused] = train_steps(model32, batch, STEPS, fused,
+                                  dict(per_step, fused_update=int(fused)))
+    path_counts = train_counts()
+    for name, fused in (("plain", False), ("kernel_perm", True),
+                        ("plain_perm", False)):
+        model32.load_state_dict(init)
+        with route(name, seed):
+            runs[name] = train_steps(
+                model32, batch, STEPS, fused, per_step if fused else
+                {k: 0 for k in per_step})
+    grads, counts = initial_grads(model32, init, batch, per_step, calls, seed)
+    for k, v in counts.items():
+        path_counts[k] += v
+    gk, gp = grads["save_flash"][1], grads["plain"][1]
+    out["grads"] = check_grads(grads)
+    plain_losses = runs["plain"][0]
+    for fused in (True, False):
+        losses = runs[fused][0]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        label = "fused" if fused else "unfused"
+        rec = {"losses": losses, "plain_losses": plain_losses,
+               "loss_rel_diff": rel, **compare_params(runs, fused, gk, gp)}
+        out[f"f32_{label}"] = rec
+        log(f"[T2] float32 {label}: losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)} vs the plain route "
+            f"{', '.join(f'{x:.6f}' for x in plain_losses)} (max rel diff "
+            f"{max(rel):.2e}, tol 1e-4)")
+        log(f"[T2]   after step 1: {rec['step1']['elements_apart']} "
+            f"elements apart by more than {STEP1_PARAM_TOL:g}, "
+            f"{rec['step1']['noisy_grad_elements']} whose gradients differ "
+            f"by more than {STEP1_GRAD_AGREE:g} relative, "
+            f"{rec['step1']['unexplained']} apart without that (must be 0)")
+        log(f"[T2]   after step {STEPS}: share above 1e-5 "
+            f"{rec['share_above_1e-5']:.3e} (key biases "
+            f"{rec['key_bias_share_of_apart']:.2%} of it; first gradient "
+            f"under 0.1 rms for {rec['small_grad_share_of_apart']:.2%} of it, "
+            f"{rec['small_grad_share_of_all']:.2%} of all elements), max "
+            f"|diff| {rec['max_abs_diff']:.3e}; key biases max |diff| "
+            f"{rec['key_bias_max_abs_diff']:.3e} (bound "
+            f"{ADAM_PAIR_BOUND * LR * STEPS:g}); the rest against the "
+            f"reordered runs' difference {rec['noise_ratio']:.2f} (tol "
+            f"{NOISE_FACTOR:g}); most apart: {rec['top_leaves_apart']}")
+        if max(rel) > 1e-4 or rec["step1"]["unexplained"] or \
+                rec["key_bias_max_abs_diff"] > ADAM_PAIR_BOUND * LR * STEPS \
+                or rec["noise_ratio"] > NOISE_FACTOR:
+            fail("T2", f"{label} route disagrees with the plain route")
+    out["reordered_losses"] = {n: runs[n][0]
+                               for n in ("kernel_perm", "plain_perm")}
+    del runs
+
+    ref_loss, ref_g = grads["save_flash"]
+    remat = {}
+    for name in ("none", "no_remat"):
+        loss, g = grads[name]
+        bitwise = torch.equal(loss, ref_loss) and all(
+            torch.equal(g[k], ref_g[k]) for k in g)
+        worst = max(((g[k] - ref_g[k]).abs().max()
+                     / ref_g[k].abs().max().clamp(min=1e-30)).item()
+                    for k in g)
+        remat[name] = {"bitwise": bitwise, "max_rel_grad_diff": worst,
+                       "loss_diff": abs(loss.item() - ref_loss.item())}
+        log(f"[T2] remat {name} vs save_flash: bitwise {bitwise}, max "
+            f"|dg|/max|g| {worst:.2e}, |dloss| "
+            f"{remat[name]['loss_diff']:.2e}")
+        # identical arithmetic; only a reordered float32 sum (a library
+        # choosing another algorithm) may move the last bits
+        if not bitwise and (worst > 1e-5 or
+                            remat[name]["loss_diff"] > 1e-6 * ref_loss.abs()):
+            fail("T2", f"remat {name} disagrees with save_flash: "
+                       f"{remat[name]}")
+    out["remat"] = remat
+    del grads, ref_g, gk, gp
+    torch.cuda.empty_cache()
+
+    model_bf = long_model(torch.bfloat16, dev, seed)
+    model_bf.load_state_dict(init)
+    before = train_counts()
+    losses, _ = train_steps(model_bf, batch, STEPS, True, per_step)
+    for k, v in train_counts().items():
+        path_counts[k] += v - before[k]
+    out["bf16_losses"] = losses
+    log(f"[T2] bfloat16 fused: losses {', '.join(f'{x:.6f}' for x in losses)}")
+    out["launches"] = path_counts
+    for k, v in path_counts.items():
+        if v == 0:
+            fail("T2", f"{k} was never launched on the training path")
+    log(f"[T2] training path launches: {path_counts}")
+    return out, model_bf, batch
+
+
+def attention_bwd_bound(q, k, mask, causal, which):
+    """Least work of the dq (``which`` "dq") or dk/dv sweep: q, do, lse and
+    dvec of every row, the K and V rows some query keeps and the mask read
+    once, the outputs written once; 6 D (dq: q.k, do.v, ds.k) or 8 D (dkv:
+    q.k, do.v, p.do, ds.q) flops per kept score."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    keep = torch.ones(b, tq, tk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+    if mask is not None:
+        keep &= mask.bool()[:, None, :]
+    kv_rows = int(keep.any(1).sum())
+    es = q.element_size()
+    rows_out = b * tq if which == "dq" else 2 * b * tk
+    nbytes = (es * h * d * (2 * b * tq + 2 * kv_rows + rows_out)
+              + 8 * b * h * tq
+              + (mask.numel() * mask.element_size() if mask is not None
+                 else 0))
+    flops = h * d * (6 if which == "dq" else 8) * int(keep.sum())
+    return nbytes, flops
+
+
+# the kernels' names in a profile
+KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                  "fused_update": "fused_update_kernel"}
+
+
+def phase_train_numbers(model32, model_bf, batch, dev, seed):
+    """T3: one profiled bf16 training step: step time, tokens/s, device
+    busy time and idle share, top kernels, and each new kernel's device
+    time at the path's shape (its launches in that step). Beside each, its
+    bound, its plain version and a library yardstick that the port never
+    calls, timed with CUDA events around back-to-back calls on the same
+    inputs (device time plus any gaps between launches). The step is the
+    run's only profiler session after the serving phases: on the H100,
+    short sessions late in a full run of this script recorded no device
+    activity."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.convert import param_tree
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.kernels import fused_update as FU
+    params = param_tree(model_bf)
+    opt = popt.Adam(LR)
+    state = opt.init(params)
+    loss_fn = loss_fn_for(model_bf, batch)
+
+    def step():
+        opt.minimize(loss_fn, params, state, fused=True)
+
+    step()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    busy, kernels = profiled(step, "the training step")
+    step_ms = min(wall)
+    by_kernel = {}
+    for key, sym in KERNEL_SYMBOLS.items():
+        rows = [r for r in kernels if sym in r[0]]
+        by_kernel[key] = {"count": sum(r[1] for r in rows),
+                          "device_ms": sum(r[2] for r in rows)}
+        if by_kernel[key]["count"] == 0:
+            fail("T3", f"the profile of the step shows no {sym}")
+    step_rec = {"wall_ms": wall, "step_ms": step_ms,
+                "tokens_per_s": LONG_BATCH * LONG_LEN / step_ms * 1e3,
+                "device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
+                "kernels_in_step": by_kernel,
+                "top_kernels": [{"name": n[:120], "count": c, "device_ms": t}
+                                for n, c, t in kernels[:15]]}
+    log(f"[T3] bf16 training step (batch {LONG_BATCH} x {LONG_LEN}): "
+        f"{', '.join(f'{x:.1f}' for x in wall)} ms, "
+        f"{step_rec['tokens_per_s']:.0f} tokens/s; device busy {busy:.1f} "
+        f"ms (idle share {step_rec['idle_share']:.3f})")
+    for n, c, t in kernels[:15]:
+        log(f"[T3]   {t:9.3f} ms {c:6d}x  {n[:100]}")
+    del params, opt, state
+    torch.cuda.empty_cache()
+
+    numbers = {k: {"ms": v["device_ms"] / v["count"],
+                   "launches_per_step": v["count"]}
+               for k, v in by_kernel.items()}
+    # the flash kernels at the path's shape, bf16
+    _, b, h, tq, tk, d, causal, _ = TRAIN_FLASH
+    q, k, v, m, do, lse, dvec = bwd_inputs(TRAIN_FLASH, torch.bfloat16, dev,
+                                           seed)
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lib_o = sdpa(ql, kl, vl, scale=scale)       # every key kept: no mask
+    bwd_args = (q, k, v, do, lse, dvec, causal, scale, m)
+    plain_bwd = time_ms(lambda: A.flash_attention_bwd_reference(*bwd_args),
+                        [()], 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_o, (ql, kl, vl), do, retain_graph=True), [()], 3)
+    bnd = bound_ms(*attention_bound(q, k, m, causal), torch.bfloat16)
+    numbers["flash_fwd"].update(
+        plain_ms=time_ms(lambda: A.flash_attention_reference(
+            q, k, v, causal, scale, m), [()], 2),
+        library_ms=time_ms(lambda: sdpa(q, k, v, scale=scale), [()], 3),
+        bound_ms=bnd[0], bound_by=bnd[1])
+    for key, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+        bnd = bound_ms(*attention_bwd_bound(q, k, m, causal, which),
+                       torch.bfloat16)
+        # the plain version computes dq, dk and dv in one pass; no library
+        # call computes dq or dk/dv alone, SDPA's backward computes all
+        numbers[key].update(plain_ms=plain_bwd, library_ms=None,
+                            library_pair_ms=lib_bwd, bound_ms=bnd[0],
+                            bound_by=bnd[1])
+    del q, k, v, do, ql, kl, vl, lib_o
+    torch.cuda.empty_cache()
+
+    # the fused update on the transformer_long parameters, float32
+    tree = {key: p.detach().clone() for key, p in param_tree(model32).items()}
+    grads = random_grads(tree, seed)
+    acc = {nm: {key: torch.zeros_like(p) for key, p in tree.items()}
+           for nm in ("m", "v")}
+    n = sum(p.numel() for p in tree.values())
+    hyper = dict(momentum=0.9, nesterov=False, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, weight_decay=0.0)
+    scal = FU.step_scalars(LR, 0, "adam", device=dev)
+
+    def plain_upd():
+        for key, p in tree.items():
+            FU.update_reference("adam", p, grads[key],
+                                [acc["m"][key], acc["v"][key]], scal, hyper)
+    lib_params = [p.clone() for p in tree.values()]
+    for p, g in zip(lib_params, grads.values()):
+        p.grad = g
+    lib_opt = torch.optim.Adam(lib_params, lr=LR, fused=True)
+    n_chunks = sum(-(-p.numel() // FU.CHUNK) for p in tree.values())
+    bnd = bound_ms(28 * n + 40 * n_chunks + 16,
+                   ADAM_FLOPS_PER_ELEMENT * n, torch.float32)
+    numbers["fused_update"].update(
+        plain_ms=time_ms(plain_upd, [()], 5),
+        library_ms=time_ms(lib_opt.step, [()], 20),
+        bound_ms=bnd[0], bound_by=bnd[1], elements=n)
+    for key, r in numbers.items():
+        lib = (f"library {r['library_ms']:.3f} ms" if r["library_ms"]
+               else f"library (dq+dk+dv in one SDPA backward) "
+                    f"{r['library_pair_ms']:.3f} ms")
+        log(f"[T3] {key} at the path's shape: kernel {r['ms']:.3f} ms "
+            f"(device, {r['launches_per_step']} a step), plain "
+            f"{r['plain_ms']:.3f} ms, {lib} (CUDA events); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+            f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the kernel's time")
+    return step_rec, numbers
 
 
 def gpu_name_and_power():
@@ -590,31 +1357,56 @@ def main(argv=None):
     report["kernels"], worst = phase_kernels(dev, args.seed)
     model_bf16 = full_width_model(torch.bfloat16, dev, args.seed)
     report["serving"] = phase_serving(model_bf16, dev, args.seed)
-    launches = {"flash_fwd": flash_attention.launches}
+    serving_launches = flash_attention.launches
     report["e2e"] = phase_e2e(model_bf16, dev, args.seed)
     report["numbers"] = phase_numbers(dev, args.seed)
     report["generate"] = [
         phase_generate_profile(model_bf16, dev, args.seed, use_bf16)
         for use_bf16 in (False, True)]
+    del model_bf16
+    torch.cuda.empty_cache()
+
+    from paddle_tpu_torch.convert import param_tree
+    report["train_kernels"], train_worst = phase_train_kernels(dev, args.seed)
+    model32 = long_model(torch.float32, dev, args.seed)
+    report["update_kernel"], worst["fused_update"] = phase_update_kernel(
+        param_tree(model32), dev, args.seed)
+    worst["flash_fwd"] = max(worst["flash_fwd"], train_worst.pop("flash_fwd"))
+    worst.update(train_worst)
+    report["train"], model_bf, batch = phase_train(model32, dev, args.seed)
+    report["train_step"], train_numbers = phase_train_numbers(
+        model32, model_bf, batch, dev, args.seed)
+    report["train_numbers"] = train_numbers
     report["seconds"] = time.perf_counter() - t_start
 
+    launches = dict(report["train"]["launches"])
+    launches["flash_fwd"] += serving_launches
+    # flash_fwd's times are the serving decoder shape's (12 of every 12
+    # launches per decode step); its other shapes, the training one
+    # included, are in "shapes"
+    main = next(r for r in report["numbers"]
+                if r["case"] == "decoder_self" and r["dtype"] == "bfloat16")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = []
     for name, meta in KERNELS.items():
-        # the line's times are the decoder shape's (12 of every 12 launches
-        # per decode step); all path shapes are in "shapes"
-        main = next(r for r in report["numbers"]
-                    if r["case"] == "decoder_self"
-                    and r["dtype"] == "bfloat16")
-        kernels_line.append({
-            "name": name, **meta, "launches": launches[name],
-            "max_abs_err": worst[name], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shapes": [{k: r[k] for k in ("case", "dtype", "shape", "ms",
-                                          "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms",
-                                          "call_ms")}
-                       for r in report["numbers"]]})
+        rec = {"name": name, **meta, "launches": launches[name],
+               "max_abs_err": worst[name]}
+        if name == "flash_fwd":
+            rec.update({k: main[k] for k in keys})
+            rec["launches_by_path"] = {
+                "serving": serving_launches,
+                "training": report["train"]["launches"]["flash_fwd"]}
+            rec["shapes"] = [
+                {k: r[k] for k in ("case", "dtype", "shape", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "call_ms")}
+                for r in report["numbers"]] + [
+                dict({k: train_numbers[name][k] for k in keys},
+                     case="train", dtype="bfloat16",
+                     shape=list(TRAIN_FLASH[1:6]))]
+        else:
+            rec.update(train_numbers[name])
+        kernels_line.append(rec)
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

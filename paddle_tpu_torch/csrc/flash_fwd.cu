@@ -29,12 +29,13 @@
 // at a time where rows are not 16-byte multiples), so that even a decode
 // block, whose single row one warp computes, has 128 threads' loads in
 // flight. The scaled q tile stays in shared memory. Lane j scores key j
-// of the tile against a row (the row of K in shared memory has an odd
-// stride, so the 32 lanes hit 32 banks), a warp max and a warp sum give
-// the online
-// softmax update, and the P.V product broadcasts each p_j by shuffle
-// while lane c accumulates output columns c, c+32, ... The running
-// (m, l, acc) stay in float32 registers and o is written once.
+// of the tile against the warp's rows (the row of K in shared memory has
+// an odd stride, so the 32 lanes hit 32 banks; each K element read
+// serves all of the warp's rows), a warp max and a warp sum give the
+// online softmax update, and the P.V product broadcasts each p_j by
+// shuffle while lane c accumulates output columns c, c+32, ... (each V
+// element read again serves all rows). The running (m, l, acc) stay in
+// float32 registers and o is written once.
 //
 // What bounds it on the H100: at decode (Tq = 1) the kernel reads the
 // whole K/V cache of every (batch, head) once per token and layer and does
@@ -52,52 +53,17 @@
 // K/V in bf16 in shared memory, and skipping K/V tiles that are fully
 // masked.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int kBlockK = 32;        // keys per shared-memory tile: one per lane
 constexpr int kWarps = 4;          // warps per block
-constexpr int kRowsPerWarp = 4;    // query rows a warp owns, at most
-constexpr int kMaxBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr float kMaskValue = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 16 bytes of T (4 float32 or 8 bfloat16) -> float32.
-__device__ __forceinline__ void unpack16(const uint4& raw, float* out,
-                                         const float*) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& raw, float* out,
-                                         const __nv_bfloat16*) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
+constexpr int kRowsPerWarp = 4;    // query rows a warp owns from Tq = 16 on
 
 // Stage keys k0 .. k0+kBlockK-1 of K and V into shared memory as float32;
 // rows past the end (j >= nk) are zero. With `vec`, every thread moves 16
@@ -146,21 +112,11 @@ __device__ __forceinline__ void load_kv_tile(const T* __restrict__ kb,
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-// DC = ceil(D / 32): output columns per lane.
-template <typename T, int DC>
+// DC = ceil(D / 32): output columns per lane. R: query rows a warp owns
+// (4 from Tq = 16 on, 1 below: decode). A warp owns rows warp,
+// warp + nwarps, ...; past its last row it repeats that row (computed,
+// never written), so the inner loops carry no branch.
+template <typename T, int DC, int R>
 __global__ void flash_fwd_kernel(const T* __restrict__ q,
                                  const T* __restrict__ k,
                                  const T* __restrict__ v,
@@ -180,6 +136,11 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int rows = min(block_q, tq - q0);
+  const int nrows = rows > warp ? (rows - warp + nwarps - 1) / nwarps : 0;
+  int row[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    row[r] = warp + min(r, max(nrows - 1, 0)) * nwarps;
 
   const T* qb = q + ((size_t)bh * tq + q0) * d;
   const T* kb = k + (size_t)bh * tk * d;
@@ -189,11 +150,11 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q,
   for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
     q_s[i] = to_float(qb[i]) * scale;
 
-  float acc[kRowsPerWarp][DC];
-  float m_i[kRowsPerWarp];
-  float l_i[kRowsPerWarp];
+  float acc[R][DC];
+  float m_i[R];
+  float l_i[R];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int r = 0; r < R; ++r) {
     m_i[r] = kMaskValue;
     l_i[r] = 0.f;
 #pragma unroll
@@ -205,52 +166,64 @@ __global__ void flash_fwd_kernel(const T* __restrict__ q,
     __syncthreads();  // the previous tile is consumed; q_s is written
     load_kv_tile(kb, vb, k_s, v_s, k0, nk, d, ks, vec);
     __syncthreads();
+    if (nrows == 0) continue;           // the warp only helped to load
 
     const int key = k0 + lane;
     const bool in_range = lane < nk;
     const bool kv_ok = in_range && (mb == nullptr || mb[key] != 0);
     const float* kr = k_s + lane * ks;
+    // each K element read serves all of the warp's rows
+    float s[R];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp + r * nwarps;   // uniform across the warp
-      if (row < rows) {
-        const float* qr = q_s + row * d;
-        float s = 0.f;
-        for (int c = 0; c < d; ++c) s = fmaf(qr[c], kr[c], s);
-        if (!kv_ok || (causal && key > q0 + row)) s = kMaskValue;
-        if (!in_range) s = -INFINITY;      // past the end: no weight at all
-        const float m_new = fmaxf(m_i[r], warp_max(s));
-        const float corr = expf(m_i[r] - m_new);
-        const float p = in_range ? expf(s - m_new) : 0.f;
-        l_i[r] = l_i[r] * corr + warp_sum(p);
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
+    for (int c = 0; c < d; ++c) {
+      const float kc = kr[c];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] *= corr;
-        for (int j = 0; j < nk; ++j) {
-          const float pj = __shfl_sync(kFull, p, j);
-          const float* vr = v_s + j * d;
+      for (int r = 0; r < R; ++r) s[r] = fmaf(q_s[row[r] * d + c], kc, s[r]);
+    }
+    float p[R];
 #pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            const int col = c * 32 + lane;
-            if (col < d) acc[r][c] = fmaf(pj, vr[col], acc[r][c]);
-          }
-        }
-        m_i[r] = m_new;
+    for (int r = 0; r < R; ++r) {
+      float sr = s[r];
+      if (!kv_ok || (causal && key > q0 + row[r])) sr = kMaskValue;
+      if (!in_range) sr = -INFINITY;     // past the end: no weight at all
+      const float m_new = fmaxf(m_i[r], warp_max(sr));
+      const float corr = expf(m_i[r] - m_new);
+      p[r] = in_range ? expf(sr - m_new) : 0.f;
+      l_i[r] = l_i[r] * corr + warp_sum(p[r]);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[r][c] *= corr;
+      m_i[r] = m_new;
+    }
+    // ... and each V element read
+    for (int j = 0; j < nk; ++j) {
+      float vj[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int col = c * 32 + lane;
+        vj[c] = col < d ? v_s[j * d + col] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float pj = __shfl_sync(kFull, p[r], j);
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pj, vj[c], acc[r][c]);
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp + r * nwarps;
-    if (row < rows) {
+  for (int r = 0; r < R; ++r) {
+    if (r < nrows) {
       const float l_safe = fmaxf(l_i[r], 1e-30f);
-      T* orow = o + ((size_t)bh * tq + q0 + row) * d;
+      T* orow = o + ((size_t)bh * tq + q0 + row[r]) * d;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const int col = c * 32 + lane;
         if (col < d) orow[col] = from_float<T>(acc[r][c] / l_safe);
       }
-      if (lane == 0) lse[(size_t)bh * tq + q0 + row] = m_i[r] + logf(l_safe);
+      if (lane == 0)
+        lse[(size_t)bh * tq + q0 + row[r]] = m_i[r] + logf(l_safe);
     }
   }
 }
@@ -259,9 +232,12 @@ template <typename T>
 void launch(const void* q, const void* k, const void* v, const void* mask,
             void* o, void* lse, int bh, int h, int tq, int tk, int d,
             float scale, int causal, cudaStream_t stream) {
-  const int block_q = tq < kMaxBlockQ ? tq : kMaxBlockQ;
-  // four warps share the tile loads even where fewer own query rows (at
-  // decode one row): the loads, not the arithmetic, take the time there
+  // four rows a warp from Tq = 16 on; one row a warp below (decode), where
+  // the loads, not the arithmetic, take the time: the four warps share
+  // the tile loads even where only one owns a row
+  const bool wide = tq >= kWarps * kRowsPerWarp;
+  const int block_q = wide ? kWarps * kRowsPerWarp : (tq < kWarps ? tq
+                                                                   : kWarps);
   const dim3 grid(bh, (tq + block_q - 1) / block_q);
   const dim3 block(kWarps * 32);
   // v_s starts 16-byte aligned when block_q * d + kBlockK * (d | 1) is a
@@ -279,8 +255,14 @@ void launch(const void* q, const void* k, const void* v, const void* mask,
   const int dc = (d + 31) / 32;
 #define FLASH_FWD_CASE(DC)                                                  \
   case DC:                                                                  \
-    flash_fwd_kernel<T, DC><<<grid, block, smem, stream>>>(                 \
-        qt, kt, vt, mt, ot, lt, h, tq, tk, d, scale, causal, block_q, vec); \
+    if (wide)                                                               \
+      flash_fwd_kernel<T, DC, kRowsPerWarp><<<grid, block, smem, stream>>>( \
+          qt, kt, vt, mt, ot, lt, h, tq, tk, d, scale, causal, block_q,     \
+          vec);                                                             \
+    else                                                                    \
+      flash_fwd_kernel<T, DC, 1><<<grid, block, smem, stream>>>(            \
+          qt, kt, vt, mt, ot, lt, h, tq, tk, d, scale, causal, block_q,     \
+          vec);                                                             \
     break;
   switch (dc) {
     FLASH_FWD_CASE(1)

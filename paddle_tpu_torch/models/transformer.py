@@ -1,12 +1,16 @@
-"""Transformer-base encoder-decoder for serving (counterpart of
+"""Transformer encoder-decoder for serving and training (counterpart of
 ``paddle_tpu/models/transformer.py``).
 
 Ported: ``sinusoid_position_encoding``, ``FeedForward``, ``EncoderLayer``,
 ``DecoderLayer`` (``forward``/``step``/``cross_kv``), ``TransformerConfig``
-(``base``/``big``/``tiny``), ``Transformer`` (``encode``, ``decode``,
-``init_decode_state``, ``decode_step``, ``forward``) and
-``greedy_decode_cached``. MoE, remat, paged, speculative and beam decode
-come with later slices; their config knobs are not accepted here.
+(``base``/``big``/``tiny``, with ``label_smooth_eps``, ``remat`` and
+``remat_policy``), ``Transformer`` (``encode``, ``decode``,
+``init_decode_state``, ``decode_step``, ``forward``, ``loss``) and
+``greedy_decode_cached``. ``encode``, ``decode`` and ``forward`` are
+differentiable; the serving entry points (``init_decode_state``,
+``decode_step``, ``greedy_decode_cached``) run without autograd. MoE,
+paged, speculative and beam decode come with later slices; their config
+knobs are not accepted here.
 
 Activations run in ``cfg.dtype``; parameters are float32 (``Generator``'s
 ``use_bf16`` casts them once). The model is built on the CPU from a seeded
@@ -15,17 +19,22 @@ Activations run in ``cfg.dtype``; parameters are float32 (``Generator``'s
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.dtypes import convert_dtype
 from paddle_tpu_torch.nn.attention import MultiHeadAttention
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from paddle_tpu_torch.ops.loss import token_softmax_cross_entropy
 from paddle_tpu_torch.ops.math import stable_argmax
+
+REMAT_POLICIES = ("save_flash", "none")
 
 
 def sinusoid_position_encoding(max_len: int, d_model: int,
@@ -112,12 +121,21 @@ class DecoderLayer(nn.Module):
 
 class TransformerConfig:
     """transformer-base hyperparams (dist_transformer.py ModelHyperParams).
-    ``dtype`` is the activation dtype: a ``torch.dtype`` or its name."""
+    ``dtype`` is the activation dtype: a ``torch.dtype`` or its name.
+
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``); ``remat_policy`` "save_flash" keeps the
+    flash-attention forward's outputs (o, lse) so the recompute does not
+    launch the kernel again, "none" recomputes the whole layer."""
 
     def __init__(self, src_vocab_size=32000, trg_vocab_size=32000,
                  max_length=256, d_model=512, d_inner=2048, n_head=8,
                  n_layer=6, dropout=0.1, share_embedding=True,
-                 dtype=torch.float32, use_flash=False):
+                 label_smooth_eps=0.1, dtype=torch.float32, use_flash=False,
+                 remat=False, remat_policy="save_flash"):
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {remat_policy!r}")
         self.src_vocab_size = src_vocab_size
         self.trg_vocab_size = trg_vocab_size
         self.max_length = max_length
@@ -127,8 +145,11 @@ class TransformerConfig:
         self.n_layer = n_layer
         self.dropout = dropout
         self.share_embedding = share_embedding
+        self.label_smooth_eps = label_smooth_eps
         self.dtype = convert_dtype(dtype)
         self.use_flash = use_flash
+        self.remat = remat
+        self.remat_policy = remat_policy
 
     @classmethod
     def base(cls, **kw):
@@ -202,6 +223,16 @@ class Transformer(nn.Module):
 
     # -- pieces ----------------------------------------------------------
 
+    def _maybe_remat(self, f, *args):
+        """``f(*args)``, recomputed in the backward when ``cfg.remat`` and
+        autograd is recording (``paddle_tpu/models/transformer.py:346``)."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return f(*args)
+        kw = {}
+        if self.cfg.remat_policy == "save_flash":
+            kw["context_fn"] = _save_flash_contexts
+        return ckpt.checkpoint(f, *args, use_reentrant=False, **kw)
+
     def _emb_scale(self, dtype):
         # sqrt(d_model) rounded to the activation dtype, as jnp.asarray does
         return float(torch.tensor(math.sqrt(self.cfg.d_model), dtype=dtype))
@@ -210,7 +241,6 @@ class Transformer(nn.Module):
         x = emb(ids).to(dtype) * self._emb_scale(dtype)
         return x + self.pos_enc.to(dtype)[None, :ids.shape[1]]
 
-    @torch.no_grad()
     def encode(self, src_ids, src_mask=None):
         dtype = self.cfg.dtype
         if src_mask is None:
@@ -218,10 +248,9 @@ class Transformer(nn.Module):
         x = self.enc_drop(self._embed(self.src_emb, src_ids, dtype))
         attn_mask = src_mask[:, None, None, :]
         for layer in self.enc_layers:
-            x = layer(x, mask=attn_mask)
+            x = self._maybe_remat(functools.partial(layer, mask=attn_mask), x)
         return self.enc_ln(x)
 
-    @torch.no_grad()
     def decode(self, trg_ids, enc_out, src_mask=None, trg_mask=None):
         dtype = self.cfg.dtype
         x = self.dec_drop(self._embed(self.trg_emb, trg_ids, dtype))
@@ -232,7 +261,8 @@ class Transformer(nn.Module):
             self_mask = self_mask & trg_mask[:, None, None, :]
         cross_mask = None if src_mask is None else src_mask[:, None, None, :]
         for layer in self.dec_layers:
-            x = layer(x, enc_out, self_mask=self_mask, cross_mask=cross_mask)
+            x = self._maybe_remat(functools.partial(
+                layer, self_mask=self_mask, cross_mask=cross_mask), x, enc_out)
         return self.proj(self.dec_ln(x))
 
     # -- incremental decoding (KV cache) ---------------------------------
@@ -265,6 +295,25 @@ class Transformer(nn.Module):
             src_mask = src_ids != 0
         enc_out = self.encode(src_ids, src_mask)
         return self.decode(trg_ids, enc_out, src_mask, trg_mask)
+
+    # -- loss ------------------------------------------------------------
+
+    def loss(self, logits, labels, label_mask):
+        """Label-smoothed CE averaged over non-pad tokens, in the
+        logsumexp form of ``token_softmax_cross_entropy``
+        (``paddle_tpu/models/transformer.py:775``)."""
+        nll = token_softmax_cross_entropy(logits, labels,
+                                          self.cfg.label_smooth_eps)
+        w = label_mask.float()
+        return (nll * w).sum() / w.sum().clamp(min=1.0)
+
+
+def _save_flash_contexts():
+    """Selective-checkpoint contexts that save the outputs of the trainable
+    flash op (``kernels/attention.py``'s ``flash_attn``) and recompute the
+    rest of the layer."""
+    return ckpt.create_selective_checkpoint_contexts(
+        [torch.ops.paddle_tpu_torch.flash_attn.default])
 
 
 @torch.no_grad()

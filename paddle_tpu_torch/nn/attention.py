@@ -1,8 +1,9 @@
-"""Multi-head attention of the serving path (counterpart of
+"""Multi-head attention of the serving and training paths (counterpart of
 ``paddle_tpu/nn/attention.py``): ``scaled_dot_product_attention`` with its
-flash route, and ``MultiHeadAttention`` with ``forward``, ``init_cache``,
-``kv`` and the one-token ``step``. The paged and staged methods come with
-the paged-server slice.
+flash route and its dense route (whose softmax keeps the low-precision
+probs as its only residual, ``_softmax_lowp``), and ``MultiHeadAttention``
+with ``forward``, ``init_cache``, ``kv`` and the one-token ``step``. The
+paged and staged methods come with the paged-server slice.
 
 The self-attention KV cache is written in place at ``cache_index`` (the
 JAX version returns an updated copy); ``step`` still returns the cache so
@@ -17,6 +18,30 @@ from torch import nn
 from paddle_tpu_torch.kernels.attention import MASK_VALUE, flash_attention
 from paddle_tpu_torch.nn.layers import Dropout, Linear
 from paddle_tpu_torch.ops.math import matmul
+
+
+class _SoftmaxLowp(torch.autograd.Function):
+    """Softmax over the last dim (float32 logits) cast to ``dtype``, whose
+    residual is the low-precision probs tensor, not the float32 logits;
+    the backward computes ``p * (g - <p, g>)`` in float32
+    (``paddle_tpu/nn/attention.py:53-76``)."""
+
+    @staticmethod
+    def forward(ctx, logits, dtype):
+        p = torch.softmax(logits, dim=-1).to(dtype)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        p32, g32 = p.float(), g.float()
+        dot = (p32 * g32).sum(dim=-1, keepdim=True)
+        return p32 * (g32 - dot), None
+
+
+def _softmax_lowp(logits, dtype):
+    return _SoftmaxLowp.apply(logits, dtype)
 
 
 def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
@@ -47,7 +72,7 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
         logits = logits.masked_fill(~cmask, MASK_VALUE)
     if mask is not None:
         logits = logits.masked_fill(~mask, MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = _softmax_lowp(logits, q.dtype)
     return matmul(probs, v)
 
 

@@ -1,5 +1,6 @@
-"""Layers of the serving path as ``nn.Module``s (counterpart of
-``paddle_tpu/nn/layers.py``).
+"""Layers of the serving and training paths as ``nn.Module``s (counterpart
+of ``paddle_tpu/nn/layers.py``). Parameters are trainable; the serving
+entry points run them under ``torch.no_grad``.
 
 Parameter names and layouts follow the JAX package so that weights carry
 over by path (``paddle_tpu_torch/convert.py``): ``Linear.weight`` is stored
@@ -40,10 +41,9 @@ class Linear(nn.Module):
         super().__init__()
         self.act = act
         self.weight = nn.Parameter(
-            xavier_uniform((in_features, out_features), generator),
-            requires_grad=False)
-        self.bias = (nn.Parameter(torch.zeros(out_features),
-                                  requires_grad=False) if bias else None)
+            xavier_uniform((in_features, out_features), generator))
+        self.bias = (nn.Parameter(torch.zeros(out_features)) if bias
+                     else None)
 
     def forward(self, x):
         out = matmul(x, self.weight.to(x.dtype))
@@ -59,8 +59,8 @@ class LayerNorm(nn.Module):
         super().__init__()
         shape = ((normalized_shape,) if isinstance(normalized_shape, int)
                  else tuple(normalized_shape))
-        self.scale = nn.Parameter(torch.ones(shape), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(shape), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
 
     def forward(self, x):
         begin = x.dim() - self.scale.dim()
@@ -77,19 +77,25 @@ class Embedding(nn.Module):
         if std is None:   # XavierNormal, the JAX layer's default
             std = math.sqrt(2.0 / (num_embeddings + embedding_dim))
         self.weight = nn.Parameter(
-            normal((num_embeddings, embedding_dim), std, generator),
-            requires_grad=False)
+            normal((num_embeddings, embedding_dim), std, generator))
 
     def forward(self, ids):
         return nn_ops.embedding(ids, self.weight)
 
 
 class Dropout(nn.Module):
-    """Eval-mode dropout: the port serves and does not train yet."""
+    """dropout in ``upscale_in_train`` mode while ``self.training``, the
+    identity otherwise. The keep mask comes from ``generator`` (a
+    ``torch.Generator`` on the activations' device), or from PyTorch's
+    default generator when it is None. Under remat keep the default: the
+    checkpoint restores only the default generators' state for the
+    recompute, so an explicit generator would draw another mask there."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, generator=None):
         super().__init__()
         self.p = p
+        self.generator = generator
 
     def forward(self, x):
-        return nn_ops.dropout(x, self.p, is_test=True)
+        return nn_ops.dropout(x, self.p, is_test=not self.training,
+                              generator=self.generator)

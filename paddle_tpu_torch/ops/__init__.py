@@ -1,1 +1,1 @@
-"""Tensor ops of the serving path."""
+"""Tensor ops of the serving and training paths."""

@@ -1,5 +1,6 @@
-"""NN ops of the serving path (counterpart of ``paddle_tpu/ops/nn_ops.py``):
-``layer_norm``, ``embedding`` and eval-mode ``dropout``."""
+"""NN ops of the serving and training paths (counterpart of
+``paddle_tpu/ops/nn_ops.py``): ``layer_norm`` (differentiated by plain
+autograd), ``embedding`` and ``dropout``."""
 
 from __future__ import annotations
 
@@ -23,13 +24,19 @@ def layer_norm(x, scale=None, bias=None, begin_norm_axis=1, epsilon=1e-5):
     return out.to(x.dtype)
 
 
-def dropout(x, dropout_prob=0.5, is_test=False):
-    """dropout_op at inference with the default ``upscale_in_train``
-    convention (``paddle_tpu/ops/nn_ops.py:868-875``): the identity.
-    Training-mode dropout comes with the training slice."""
-    if not (is_test or dropout_prob == 0.0):
-        raise NotImplementedError("training-mode dropout is not ported yet")
-    return x
+def dropout(x, dropout_prob=0.5, is_test=False, generator=None):
+    """dropout_op parity (``paddle_tpu/ops/nn_ops.py:868-883``) in its
+    default ``upscale_in_train`` convention: the identity at inference;
+    in training, x / keep where a uniform draw from ``generator`` (a
+    ``torch.Generator`` on x's device, or the default one) falls below
+    keep = 1 - p, else 0. The streams differ from the reference's, so
+    parity with the reference holds only at ``dropout_prob == 0``."""
+    if is_test or dropout_prob == 0.0:
+        return x
+    keep = 1.0 - dropout_prob
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def embedding(ids, weight, padding_idx=None):

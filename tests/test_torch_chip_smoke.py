@@ -53,3 +53,72 @@ def test_bound_ms_takes_the_larger_time():
     assert (ms, by) == (pytest.approx(1.0), "bytes")
     ms, by = chip_smoke.bound_ms(rate * 1e-4, peak * 1e-3, torch.bfloat16)
     assert (ms, by) == (pytest.approx(1.0), "operations")
+
+
+# (b, h, tq, tk, d, dtype, causal, kept keys per batch row, which, bytes,
+#  flops) of the backward sweeps: q, do, lse, dvec of every row; K and V
+# rows some query keeps; the mask; dq (or dk and dv of every key) out
+BWD_CASES = [
+    # every key kept, bf16: dq 6 D and dkv 8 D flops per score
+    (1, 2, 4, 6, 8, torch.bfloat16, False, [6], "dq",
+     2 * 2 * 8 * (2 * 4 + 2 * 6 + 4) + 8 * 2 * 4 + 6,
+     2 * 8 * 6 * 4 * 6),
+    (1, 2, 4, 6, 8, torch.bfloat16, False, [6], "dkv",
+     2 * 2 * 8 * (2 * 4 + 2 * 6 + 2 * 6) + 8 * 2 * 4 + 6,
+     2 * 8 * 8 * 4 * 6),
+    # causal 3x3 in float32, no mask: 6 kept scores, every key kept by a row
+    (1, 1, 3, 3, 2, torch.float32, True, None, "dkv",
+     4 * 2 * (2 * 3 + 2 * 3 + 2 * 3) + 8 * 3,
+     2 * 8 * 6),
+    # keys past 2 of 5 masked: their K/V rows are not read
+    (2, 1, 2, 5, 4, torch.float32, False, [2, 2], "dq",
+     4 * 4 * (2 * 2 * 2 + 2 * 4 + 2 * 2) + 8 * 2 * 2 + 2 * 5,
+     4 * 6 * 2 * 2 * 2),
+]
+
+
+@pytest.mark.parametrize(
+    "b,h,tq,tk,d,dtype,causal,rows,which,nbytes,flops", BWD_CASES,
+    ids=["dq_dense", "dkv_dense", "dkv_causal", "dq_masked"])
+def test_attention_bwd_bound_counts_kept_scores(b, h, tq, tk, d, dtype,
+                                                causal, rows, which, nbytes,
+                                                flops):
+    q = torch.zeros(b, h, tq, d, dtype=dtype)
+    k = torch.zeros(b, h, tk, d, dtype=dtype)
+    mask = None if rows is None else _mask(rows, tk)
+    assert chip_smoke.attention_bwd_bound(q, k, mask, causal, which) == (
+        nbytes, flops)
+
+
+def test_training_phase_shapes_are_transformer_long():
+    cfg = chip_smoke.LONG_CFG
+    assert (cfg["d_model"], cfg["n_head"], cfg["n_layer"], cfg["max_length"],
+            cfg["src_vocab_size"]) == (512, 8, 6, 4096, 8192)
+    assert cfg["remat"] and cfg["use_flash"]
+    _, b, h, tq, tk, d, causal, _ = chip_smoke.TRAIN_FLASH
+    assert (b, h, tq, tk, d, causal) == (
+        chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
+        chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
+    assert chip_smoke.SOURCES == ["flash_bwd", "flash_fwd", "fused_update"]
+
+
+def test_permuted_keys_is_the_same_attention():
+    """T2's reordered route: the trainable flash op fed the keys in another
+    order gives the same output and the same dq, dk and dv, up to float32
+    rounding."""
+    from paddle_tpu_torch.kernels import attention as A
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(2, 2, t, 8, generator=g)
+                   for t in (5, 7, 7, 5))
+    mask = _mask([7, 4], 7)
+    op, runs = A.flash_attn_op, []
+    for reorder in (False, True):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        route = chip_smoke.permuted_keys(seed=3) if reorder else \
+            chip_smoke.contextlib.nullcontext()
+        with route:
+            o = A.flash_attention(*qkv, kv_mask=mask, device="cpu")
+        runs.append((o, *torch.autograd.grad((o * do).sum(), qkv)))
+    assert A.flash_attn_op is op
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

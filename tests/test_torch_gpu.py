@@ -1,4 +1,6 @@
-"""Card-only tests of the port's CUDA kernels (marker ``gpu``).
+"""Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
+forward and backward and the fused optimizer update against their plain
+versions.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a GPU machine without JAX:
@@ -6,10 +8,11 @@ nor the JAX package, so it also runs on a GPU machine without JAX:
     python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 
-Tolerances: float32 o within 1e-5 of the plain version (same float32
-function, another summation order); bfloat16 o within 1e-2 relative
-(one bf16 rounding step of an output that differs in float32 by ~1e-7);
-lse within 1e-5 relative in both.
+Tolerances of the forward: float32 o within 1e-5 of the plain version
+(same float32 function, another summation order); bfloat16 o within 1e-2
+relative (one bf16 rounding step of an output that differs in float32 by
+~1e-7); lse within 1e-5 relative in both. The backward's and the fused
+update's are stated beside their tests.
 """
 
 import numpy as np
@@ -112,3 +115,137 @@ def test_tiny_model_tokens_equal_with_and_without_kernel(cuda):
         else:
             assert launched == 0
     np.testing.assert_array_equal(out[True], out[False])
+
+
+# -- flash backward (csrc/flash_bwd.cu) ---------------------------------------
+#
+# Tolerance: float32 dq/dk/dv within 1e-4 of the plain version relative to
+# (1 + |plain|): the same float32 function summed over up to Tk (dq) or Tq
+# (dk, dv) terms in another order; bfloat16 within 2e-2 (the inputs and
+# outputs are bfloat16, the sums float32 on both sides).
+
+# (name, b, h, tq, tk, d, causal, masked)
+BWD_SHAPES = [
+    ("square", 2, 4, 128, 128, 64, False, False),
+    ("masked", 3, 2, 50, 70, 64, False, True),
+    ("causal", 2, 3, 96, 96, 64, True, False),
+    ("causal_ragged", 2, 2, 40, 40, 16, True, True),
+    ("d100", 2, 2, 17, 33, 100, False, True),
+    ("d128", 1, 2, 33, 65, 128, False, False),
+]
+
+
+def _bwd_inputs(dev, dtype, b, h, tq, tk, d, causal, masked):
+    q, k, v, _ = _inputs(dev, dtype, b, h, tq, tk, d, False)
+    g = torch.Generator(device=dev).manual_seed(1)
+    m = None
+    if masked:   # every row keeps at least one key: training has no all-pad
+        m = torch.rand(b, tk, device=dev, generator=g) > 0.3
+        m[:, 0] = True
+    do = torch.randn(b, h, tq, d, device=dev, generator=g).to(dtype)
+    o, lse = port.flash_fwd_cuda(q, k, v, causal, d ** -0.5, m)
+    dvec = (do.float() * o.float()).sum(-1)
+    return q, k, v, m, do, lse, dvec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=[s[0] for s in BWD_SHAPES])
+def test_bwd_kernels_match_plain_version(cuda, shape, dtype):
+    _, b, h, tq, tk, d, causal, masked = shape
+    q, k, v, m, do, lse, dvec = _bwd_inputs(cuda, dtype, b, h, tq, tk, d,
+                                            causal, masked)
+    n_dq = port.flash_bwd_dq_cuda.launches
+    n_dkv = port.flash_bwd_dkv_cuda.launches
+    dq = port.flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, d ** -0.5, m)
+    dk, dv = port.flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal,
+                                     d ** -0.5, m)
+    torch.cuda.synchronize()
+    assert port.flash_bwd_dq_cuda.launches == n_dq + 1
+    assert port.flash_bwd_dkv_cuda.launches == n_dkv + 1
+    want = port.flash_attention_bwd_reference(q, k, v, do, lse, dvec, causal,
+                                              d ** -0.5, m)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        err = ((got.float() - ref.float()).abs()
+               / (1 + ref.float().abs())).max().item()
+        assert err < tol, (name, err)
+
+
+def test_autograd_route_launches_both_bwd_kernels(cuda):
+    q, k, v, m, do, _, _ = _bwd_inputs(cuda, torch.float32, 2, 2, 32, 32, 64,
+                                       False, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (port.flash_attention.launches, port.flash_bwd_dq_cuda.launches,
+         port.flash_bwd_dkv_cuda.launches)
+    o = port.flash_attention(*leaves, kv_mask=m, device=cuda)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (port.flash_attention.launches, port.flash_bwd_dq_cuda.launches,
+            port.flash_bwd_dkv_cuda.launches) == (n[0] + 1, n[1] + 1,
+                                                  n[2] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ro = port.flash_attention_reference(*plain, False, None, m)[0]
+    want = torch.autograd.grad(ro, plain, do)
+    for got, ref in zip(grads, want):
+        assert (got - ref).abs().max().item() < 1e-4
+
+
+def test_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 1, 4, 8, device=cuda)
+    lse = torch.zeros(1, 1, 4, device=cuda)
+    with pytest.raises(TypeError):      # lse must be float32
+        port.flash_bwd_dq_cuda(q, q, q, q, lse.double(), lse, False, 1.0)
+    with pytest.raises(ValueError):     # do has the wrong shape
+        port.flash_bwd_dkv_cuda(q, q, q, q[:, :, :2], lse, lse, False, 1.0)
+
+
+# -- fused optimizer update (csrc/fused_update.cu) ----------------------------
+#
+# The kernel rounds every operation as the plain version's PyTorch ops do,
+# one at a time: moments must be bitwise equal, parameters within 4 ulp.
+
+def _tree(dev, seed, shapes=((300, 7), (70000,), (5,), (1, 131073))):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {f"p{i}": torch.randn(s, device=dev, generator=g)
+            for i, s in enumerate(shapes)}
+
+
+@pytest.mark.parametrize("kind,clip", [("sgd", None), ("momentum", 0.5),
+                                       ("adam", None), ("adamw", 1.0)])
+def test_fused_update_matches_plain_version(cuda, kind, clip):
+    from paddle_tpu_torch.kernels import fused_update as fu
+    params = _tree(cuda, 0)
+    plain = {k: p.clone() for k, p in params.items()}
+    names = fu.ACC_NAMES[kind]
+    state = {nm: {k: torch.rand_like(p) for k, p in params.items()}
+             for nm in names}
+    plain_state = {nm: {k: t.clone() for k, t in d.items()}
+                   for nm, d in state.items()}
+    hyper = dict(momentum=0.9, nesterov=kind == "momentum", beta1=0.9,
+                 beta2=0.999, epsilon=1e-8, weight_decay=0.01)
+    for step in range(3):
+        grads = _tree(cuda, 10 + step)
+        before = fu.fused_update_step.launches
+        fu.fused_update_step(params, grads, state, kind=kind, lr=1e-2,
+                             step=step, clip_norm=clip, **hyper)
+        assert fu.fused_update_step.launches == before + 1
+        g_list = [grads[k] for k in plain]
+        factor = None
+        if clip is not None:
+            factor = fu.clip_factor(fu.global_norm(g_list), clip)
+        scal = fu.step_scalars(1e-2, step, kind, 0.9, 0.999, factor, cuda)
+        for k in plain:
+            fu.update_reference(kind, plain[k], grads[k],
+                                [plain_state[nm][k] for nm in names], scal,
+                                hyper, clip is not None)
+    torch.cuda.synchronize()
+    for nm in names:
+        for k in params:
+            assert torch.equal(state[nm][k], plain_state[nm][k]), (nm, k)
+    for k in params:
+        ulp = (params[k].view(torch.int32).long()
+               - plain[k].view(torch.int32).long()).abs().max().item()
+        assert ulp <= 4, (k, ulp)

@@ -37,7 +37,9 @@ def _submodules():
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     mods = _submodules()
-    assert "paddle_tpu_torch.kernels.attention" in mods
+    for m in ("kernels.attention", "kernels.fused_update", "optimizer",
+              "optimizer.clip", "optimizer.lr_scheduler", "ops.loss"):
+        assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -55,7 +57,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 def test_sources_name_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"\bjax\b|paddle_tpu\.")
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
-    assert any(p.name == "flash_fwd.cu" for p in files)
+    names = {p.name for p in files}
+    assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh",
+            "fused_update.cu"} <= names
     offenders = []
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):

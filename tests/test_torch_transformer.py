@@ -60,10 +60,10 @@ def test_converter_ties_embedding_and_copies_every_param():
     params = variables["params"]
     assert "src_emb" not in params and "trg_emb" in params
     assert pmodel.src_emb is pmodel.trg_emb
-    np.testing.assert_array_equal(pmodel.src_emb.weight.numpy(),
+    np.testing.assert_array_equal(pmodel.src_emb.weight.detach().numpy(),
                                   np.asarray(params["trg_emb"]["weight"]))
     np.testing.assert_array_equal(
-        pmodel.dec_layers[1].cross_attn.v_proj.weight.numpy(),
+        pmodel.dec_layers[1].cross_attn.v_proj.weight.detach().numpy(),
         np.asarray(params["dec_layers_1"]["cross_attn"]["v_proj"]["weight"]))
     n_jax = sum(x.size for x in jax.tree_util.tree_leaves(params))
     assert n_jax == sum(p.numel() for p in pmodel.parameters())
@@ -89,7 +89,8 @@ def test_encode_matches(use_flash):
     src = _src()
     want = jmodel.apply_method("encode", variables, jnp.asarray(src),
                                jnp.asarray(src != 0))
-    got = pmodel.encode(torch.from_numpy(src))
+    with torch.no_grad():   # encode is differentiable; no graph needed here
+        got = pmodel.encode(torch.from_numpy(src))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -125,7 +126,8 @@ def test_teacher_forced_forward_matches(use_flash):
     src = _src()
     trg = np.random.RandomState(4).randint(3, 100, (4, 6)).astype(np.int32)
     want = jmodel.apply(variables, jnp.asarray(src), jnp.asarray(trg))
-    got = pmodel(torch.from_numpy(src), torch.from_numpy(trg))
+    with torch.no_grad():
+        got = pmodel(torch.from_numpy(src), torch.from_numpy(trg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
