@@ -7,6 +7,37 @@ Phases, each of which fails the run (non-zero exit) on its own:
 
 1. build    every kernel of the paths from ``paddle_tpu_torch/csrc`` (one
             ``nvcc`` per source, all started together);
+
+Then the ResNet-50 path (``paddle_tpu_torch/bench.py``'s step with the conv
+kernels on: ``csrc/brgemm.cu`` for the 1x1 convs, ``csrc/conv_kxk.cu`` for
+the 3x3 ones, forward, dx and dw):
+
+R1. kernels  each conv kernel against its plain version at every distinct
+             conv shape of ResNet-50 at 224 (batch 8), forward, dx and dw,
+             in float32 and bfloat16, plus the epilogue (scale, bias,
+             residual, relu) and the cotangent fold at a strided 1x1 and a
+             strided 3x3; max-pool ties on NHWC CUDA tensors;
+R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth):
+             two Momentum steps through the kernels and through their plain
+             versions from the same state, and both again with the batch
+             permuted (the rounding floor: the same function, its batch
+             sums in another order); the first loss, every first-step
+             gradient leaf, the BN running stats and the last loss gated
+             (a fixed tolerance, or twice the floor); 108 brgemm and 16 of
+             each 3x3 kernel launched a step;
+R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
+             in pure bf16: the main path's counted step (launches as in
+             R2), timed steps (imgs/s over all of them), one profiled step
+             each (device busy time, idle share over its own wall time),
+             and in pure bf16 an eval forward through
+             the conv+BN+relu epilogue (36 + 16 launches);
+R4. numbers  each conv kernel's device time a launch, from its own launches
+             in the profiled lowp step, beside the mean over the step's
+             launches of its bound, its plain version and a library call
+             (``torch.matmul``, cuDNN) that the port never calls.
+
+Then the serving path:
+
 2. kernels  the flash forward, through the wrapper the model calls, against
             its plain PyTorch version on the card, at the serving path's
             shapes, in float32 (TF32 off) and bfloat16, with a fully
@@ -114,6 +145,26 @@ KERNELS = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_update.cu",
         "replaces": "paddle_tpu/kernels/fused_update.py:200",
+    },
+    "brgemm": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/brgemm.cu",
+        "replaces": "paddle_tpu/kernels/tiles.py:359",
+    },
+    "convkxk": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "paddle_tpu/kernels/conv_fused.py:241",
+    },
+    "convkxk_dx": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "paddle_tpu/kernels/conv_fused.py:425",
+    },
+    "convkxk_dw": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "paddle_tpu/kernels/conv_fused.py:506",
     },
 }
 # csrc/<name>.cu of every kernel above, one nvcc each
@@ -471,15 +522,18 @@ def _device_us(entry):
 
 def profiled(fn, label):
     """Run ``fn()`` under torch.profiler; returns (device time in ms summed
-    over every kernel and copy, [(name, count, device ms)] by time). A
-    session without device activity is logged; the caller fails."""
+    over every kernel and copy, [(name, count, device ms)] by time, the
+    wall time of the profiled call in ms). A session without device
+    activity is logged; the caller fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     rows = [(e.key, e.count, _device_us(e) / 1e3) for e in events
             if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
@@ -488,7 +542,7 @@ def profiled(fn, label):
             f"({len(events)} event kinds, device types "
             f"{sorted({str(e.device_type) for e in events})})")
     rows.sort(key=lambda r: -r[2])
-    return sum(r[2] for r in rows), rows
+    return sum(r[2] for r in rows), rows, wall_ms
 
 
 def device_ms(fn, arg_sets, iters, label):
@@ -496,7 +550,7 @@ def device_ms(fn, arg_sets, iters, label):
     def run():
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
-    total, _ = profiled(run, label)
+    total, _, _ = profiled(run, label)
     if total <= 0:
         fail(5, f"torch.profiler recorded no device time for {label}")
     return total / iters
@@ -560,8 +614,9 @@ def phase_numbers(dev, seed, iters=200):
 
 def phase_generate_profile(model, dev, seed, use_bf16, repeats=3):
     """Steady-state ``generate()`` of a 64x64 batch: host-clock latency
-    and tokens/s, then one profiled run for the device's busy time and
-    the kernels that take it. ``use_bf16`` casts the weights once
+    and tokens/s, then one profiled run for the device's busy time (the
+    idle share is over that run's own wall time) and the kernels that
+    take it. ``use_bf16`` casts the weights once
     instead of at every Linear call."""
     from paddle_tpu_torch.inference import GenerationConfig, Generator
     from paddle_tpu_torch.kernels.attention import flash_attention
@@ -577,11 +632,10 @@ def phase_generate_profile(model, dev, seed, use_bf16, repeats=3):
         lat.append(gen.last_latency_ms)
         tps.append(gen.last_tokens_per_s)
     before = flash_attention.launches
-    busy, kernels = profiled(lambda: gen.generate(src), "generate()")
+    busy, kernels, wall = profiled(lambda: gen.generate(src), "generate()")
     launches = flash_attention.launches - before
     if busy <= 0:
         fail(5, "torch.profiler recorded no device time for generate()")
-    wall = sorted(lat)[len(lat) // 2]
     flash = [r for r in kernels if "flash_fwd_kernel" in r[0]]
     flash_ms = sum(r[2] for r in flash)
     out = {"use_bf16": use_bf16, "latency_ms": lat, "tokens_per_s": tps,
@@ -1199,9 +1253,10 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
 
 
 def phase_train_numbers(model32, model_bf, batch, dev, seed):
-    """T3: one profiled bf16 training step: step time, tokens/s, device
-    busy time and idle share, top kernels, and each new kernel's device
-    time at the path's shape (its launches in that step). Beside each, its
+    """T3: two timed bf16 training steps (tokens/s over both), then one
+    profiled step: device busy time and idle share over its own wall
+    time, top kernels, and each new kernel's device time at the path's
+    shape (its launches in that step). Beside each, its
     bound, its plain version and a library yardstick that the port never
     calls, timed with CUDA events around back-to-back calls on the same
     inputs (device time plus any gaps between launches). The step is the
@@ -1228,8 +1283,8 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         step()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    busy, kernels = profiled(step, "the training step")
-    step_ms = min(wall)
+    busy, kernels, prof_ms = profiled(step, "the training step")
+    step_ms = sum(wall) / len(wall)
     by_kernel = {}
     for key, sym in KERNEL_SYMBOLS.items():
         rows = [r for r in kernels if sym in r[0]]
@@ -1239,14 +1294,16 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
             fail("T3", f"the profile of the step shows no {sym}")
     step_rec = {"wall_ms": wall, "step_ms": step_ms,
                 "tokens_per_s": LONG_BATCH * LONG_LEN / step_ms * 1e3,
-                "device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
+                "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
+                "idle_share": 1.0 - busy / prof_ms,
                 "kernels_in_step": by_kernel,
                 "top_kernels": [{"name": n[:120], "count": c, "device_ms": t}
                                 for n, c, t in kernels[:15]]}
     log(f"[T3] bf16 training step (batch {LONG_BATCH} x {LONG_LEN}): "
         f"{', '.join(f'{x:.1f}' for x in wall)} ms, "
-        f"{step_rec['tokens_per_s']:.0f} tokens/s; device busy {busy:.1f} "
-        f"ms (idle share {step_rec['idle_share']:.3f})")
+        f"{step_rec['tokens_per_s']:.0f} tokens/s over them; profiled step: "
+        f"device busy {busy:.1f} of {prof_ms:.1f} ms (idle share "
+        f"{step_rec['idle_share']:.3f})")
     for n, c, t in kernels[:15]:
         log(f"[T3]   {t:9.3f} ms {c:6d}x  {n[:100]}")
     del params, opt, state
@@ -1322,6 +1379,529 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
     return step_rec, numbers
 
 
+# -- ResNet-50 (R1-R4) ----------------------------------------------------------
+
+RESNET_KERNELS = ("brgemm", "convkxk", "convkxk_dx", "convkxk_dw")
+# launches of a bf16 training step of ResNet-50 (36 1x1 convs: forward, dx
+# and dw each; 16 3x3 convs) and of an eval forward
+R_PER_STEP = {"brgemm": 108, "convkxk": 16, "convkxk_dx": 16,
+              "convkxk_dw": 16}
+R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0}
+# (forward, backward) gates, relative to the output's largest magnitude
+R_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+R_SIZE, R1_BATCH, R2_BATCH, R3_BATCH = 224, 8, 32, 256
+R2_STEPS, R3_TIMED = 2, 3
+# the profiled kernels' names: each kernel's loader type is in its
+# template arguments (the split-K reductions carry it too)
+R_SYMBOLS = {"brgemm": "DenseA", "convkxk": "XRows", "convkxk_dx": "DyRows",
+             "convkxk_dw": "XCols"}
+
+
+def resnet50_conv_shapes(size=R_SIZE):
+    """Every non-stem conv of ResNet-50 at ``size`` x ``size``, in forward
+    order: (h, c, o, k, stride), h the input's height and width (the stem
+    and max pool take 224 to 56)."""
+    shapes, h, in_ch = [], size // 4, 64
+    for i, (n, ch) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for j in range(n):
+            s = (1 if i == 0 else 2) if j == 0 else 1
+            h2 = (h - 1) // s + 1
+            shapes += [(h, in_ch, ch, 1, 1), (h, ch, ch, 3, s),
+                       (h2, ch, ch * 4, 1, 1)]
+            if s != 1 or in_ch != ch * 4:
+                shapes.append((h, in_ch, ch * 4, 1, s))
+            h, in_ch = h2, ch * 4
+    return shapes
+
+
+def conv_work(shape, batch, esize):
+    """(bytes, flops) of one conv call (forward, dx or dw alike): x, w and
+    the output each moved once (a strided 1x1 reads only the sliced x), 2
+    flops a multiply-add of the real conv (taps in the padding, and the
+    zeros between a strided dx's outputs, excluded)."""
+    h, c, o, k, s = shape
+    oh = (h - 1) // s + 1
+    m = batch * oh * oh
+    x_elems = m * c if k == 1 else batch * h * h * c
+    nbytes = esize * (x_elems + o * c * k * k + m * o)
+    if k == 1:
+        return nbytes, 2 * m * c * o
+    taps = 0                       # real taps over the output rows/cols
+    for i in range(oh):
+        for kk in range(k):
+            taps += 0 <= i * s - 1 + kk < h
+    return nbytes, 2 * batch * taps * taps * c * o
+
+
+def r_counts():
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    return {"brgemm": tiles.brgemm.launches, "convkxk": cf.convkxk.launches,
+            "convkxk_dx": cf.convkxk_dx.launches,
+            "convkxk_dw": cf.convkxk_dw.launches}
+
+
+def zero_r_counts():
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    for f in (tiles.brgemm, cf.convkxk, cf.convkxk_dx, cf.convkxk_dw):
+        f.launches = 0
+
+
+class plain_conv_kernels:
+    """Route the conv kernels' wrappers to their plain versions."""
+    SWAPS = (("tiles", "brgemm_cuda", "brgemm_reference"),
+             ("cf", "convkxk_cuda", "convkxk_reference"),
+             ("cf", "convkxk_dx_cuda", "convkxk_dx_reference"),
+             ("cf", "convkxk_dw_cuda", "convkxk_dw_reference"))
+
+    def __enter__(self):
+        from paddle_tpu_torch.kernels import conv_fused as cf
+        from paddle_tpu_torch.kernels import tiles
+        self.mods = {"tiles": tiles, "cf": cf}
+        self.saved = []
+        for mod, name, plain in self.SWAPS:
+            m = self.mods[mod]
+            self.saved.append((m, name, getattr(m, name)))
+            setattr(m, name, getattr(m, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def r_inputs(shape, batch, dtype, dev, seed):
+    """x, w (He-scaled) and an output cotangent g for one conv shape."""
+    h, c, o, k, s = shape
+    oh = (h - 1) // s + 1
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, h, h, c, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(o, c, k, k, device=dev, generator=gen)
+         * (c * k * k) ** -0.5).to(dtype)
+    g = torch.randn(batch, oh, oh, o, device=dev, generator=gen).to(dtype)
+    return x, w, g
+
+
+def conv_calls(shape, x, w, g, extra=None):
+    """{kernel: (cuda call, plain call)} of one conv shape: the three
+    calls a training step makes (1x1: brgemm forward, dx, dw). ``extra``
+    adds the epilogue to the forward and the fold to the backward:
+    (scale, bias, residual, saved output)."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    h, c, o, k, s = shape
+    n, dtype = x.shape[0], x.dtype
+    ep_kw, fold = {}, (None, None)
+    if extra is not None:
+        scale, bias, res, out = extra
+        ep_kw = dict(scale=scale, bias=bias, residual=res, relu=True)
+        fold = (out, scale)
+    if k == 1:
+        xs = x[:, ::s, ::s, :]
+        m = xs.shape[0] * xs.shape[1] * xs.shape[2]
+        x2 = xs.reshape(m, c).contiguous()
+        g2 = g.reshape(m, o)
+        mask2 = None if fold[0] is None else fold[0].reshape(m, o)
+        fwd = dict(a=x2, b=w.reshape(o, c).t().contiguous(), mode="nn",
+                   **dict(ep_kw, residual=None if extra is None else
+                          ep_kw["residual"].reshape(m, o)))
+        dx = dict(a=g2, b=w.reshape(o, c).contiguous(), mode="nn",
+                  fold_on="a", fold_mask=mask2, fold_scale=fold[1])
+        dw = dict(a=x2, b=g2, mode="tn", fold_on="b", fold_mask=mask2,
+                  fold_scale=fold[1])
+        return {f"brgemm_{d}": (lambda kw=kw: tiles.brgemm_cuda(**kw),
+                                lambda kw=kw: tiles.brgemm_reference(**kw))
+                for d, kw in (("fwd", fwd), ("dx", dx), ("dw", dw))}
+    geo = ((s, s), ((1, 1), (1, 1)), (1, 1))
+    fwd = (x, w, ep_kw.get("scale"), ep_kw.get("bias"),
+           ep_kw.get("residual"), bool(ep_kw), *geo)
+    bwd_dx = (g, fold[0], fold[1], w, x.shape, dtype, *geo)
+    bwd_dw = (g, fold[0], fold[1], x, w.shape, dtype, *geo)
+    return {"convkxk": (lambda: cf.convkxk_cuda(*fwd),
+                        lambda: cf.convkxk_reference(*fwd)),
+            "convkxk_dx": (lambda: cf.convkxk_dx_cuda(*bwd_dx),
+                           lambda: cf.convkxk_dx_reference(*bwd_dx)),
+            "convkxk_dw": (lambda: cf.convkxk_dw_cuda(*bwd_dw),
+                           lambda: cf.convkxk_dw_reference(*bwd_dw))}
+
+
+def phase_resnet_kernels(dev, seed):
+    """R1: every kernel against its plain version at every distinct conv
+    shape of ResNet-50 at 224 (batch 8), forward, dx and dw, in float32
+    and bfloat16; the epilogue and the fold at a strided 1x1 and a strided
+    3x3; max-pool ties on NHWC CUDA tensors."""
+    results, worst = [], {}
+    distinct = sorted(set(resnet50_conv_shapes()))
+    extra_shapes = [(56, 256, 512, 1, 2), (56, 128, 128, 3, 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        f_tol, b_tol = R_TOL[dtype]
+        for case, shapes in (("path", distinct), ("epilogue+fold",
+                                                  extra_shapes)):
+            for shape in shapes:
+                x, w, g = r_inputs(shape, R1_BATCH, dtype, dev, seed)
+                extra = None
+                if case != "path":
+                    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+                    o = shape[2]
+                    extra = (torch.rand(o, device=dev, generator=gen) + 0.5,
+                             torch.randn(o, device=dev, generator=gen),
+                             torch.randn(g.shape, device=dev,
+                                         generator=gen).to(dtype),
+                             torch.relu(torch.randn(g.shape, device=dev,
+                                                    generator=gen)).to(dtype))
+                for name, (kern, plain) in conv_calls(shape, x, w, g,
+                                                      extra).items():
+                    got = kern()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                    diff = (got.float() - ref.float()).abs().max().item()
+                    rel = diff / max(ref.float().abs().max().item(), 1e-30)
+                    tol = f_tol if name in ("brgemm_fwd", "convkxk") \
+                        else b_tol
+                    ok = bool(torch.isfinite(got).all()) and rel <= tol \
+                        and got.dtype == ref.dtype and got.shape == ref.shape
+                    rec = {"kernel": name, "case": case,
+                           "dtype": str(dtype).split(".")[-1],
+                           "shape": list(shape), "max_abs_err": diff,
+                           "rel_err": rel, "ok": ok}
+                    results.append(rec)
+                    if not ok:
+                        fail("R1", f"{rec}")
+                    key = "brgemm" if name.startswith("brgemm") else name
+                    if dtype == torch.bfloat16 and case == "path":
+                        worst[key] = max(worst.get(key, 0.0), diff)
+                del x, w, g, extra
+        torch.cuda.empty_cache()
+    summary = {}
+    for r in results:
+        key = (r["kernel"], r["dtype"], r["case"])
+        n, w = summary.get(key, (0, 0.0))
+        summary[key] = (n + 1, max(w, r["rel_err"]))
+    for (name, dt, case), (n, w) in summary.items():
+        log(f"[R1] {name:<11} {dt:>8} {case:<13} {n:2d} shapes, every one "
+            f"within its gate; worst |kernel-plain| / max|plain| {w:.3e}")
+    results.append(maxpool_ties(dev, seed))
+    return results, worst
+
+
+def maxpool_ties(dev, seed):
+    """The stem's max pool on NHWC CUDA tensors with windows of ties (zeros
+    after the relu, and equal values): forward and gradient equal to the
+    CPU's, where the first maximum of a window takes the gradient, as in
+    the JAX reference."""
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(8, 112, 112, 64, generator=gen))
+    x[:, 10:40, 10:40, :] = 0.0
+    x[:, 50:60, 50:60, :] = 1.0
+    x = x.to(torch.bfloat16)
+    outs = []
+    for d in ("cpu", dev):
+        leaf = x.to(d).requires_grad_()
+        out = nn_ops.pool2d(leaf, 3, "max", 2, 1, data_format="NHWC")
+        cot = torch.arange(out.numel(), device=d).reshape(out.shape) % 7
+        (grad,) = torch.autograd.grad(out, leaf, cot.to(out.dtype))
+        outs.append((out.float().cpu(), grad.float().cpu()))
+    ok = torch.equal(outs[0][0], outs[1][0]) and \
+        torch.equal(outs[0][1], outs[1][1])
+    log(f"[R1] max pool ties on NHWC bf16 CUDA tensors: forward and gradient "
+        f"{'equal to the CPU' if ok else 'DIFFER from the CPU'}")
+    if not ok:
+        fail("R1", "the max pool's tie-breaking differs on the card")
+    return {"kernel": "max_pool_ties", "ok": ok}
+
+
+def resnet_step_grads(model, params, opt, state, x, labels):
+    """One step as ``bench.train_step`` takes it, keeping the gradients."""
+    from paddle_tpu_torch import bench
+    loss = bench.loss_fn(model)(params, x, labels)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    opt.apply_gradients(params, dict(zip(params, grads)), state)
+    return loss, grads
+
+
+def r2_run(model, params, opt, init, x, labels, plain, perm):
+    """Two Momentum steps from ``init`` through the kernels or (``plain``)
+    their plain versions, with the batch in its order or permuted
+    (``perm``): the same function, its batch sums taken in another order.
+    Returns the losses, the launches a step, the first step's gradients
+    and the BN running stats after the last step."""
+    from paddle_tpu_torch.convert import state_tree
+    model.load_state_dict(init)
+    state = opt.init(params)
+    if perm is not None:
+        x, labels = x[perm], labels[perm]
+    losses, counts, first = [], [], None
+    with plain_conv_kernels() if plain else contextlib.nullcontext():
+        for _ in range(R2_STEPS):
+            zero_r_counts()
+            loss, grads = resnet_step_grads(model, params, opt, state, x,
+                                            labels)
+            torch.cuda.synchronize()
+            counts.append(r_counts())
+            losses.append(loss.item())
+            if first is None:
+                first = {k: g.detach().clone() for k, g in zip(params, grads)}
+    return {"losses": losses, "counts": counts, "grads": first,
+            "stats": {k: b.detach().clone()
+                      for k, b in state_tree(model).items()}}
+
+
+def r2_gate(name, runs, get, tol):
+    """Kernel route vs plain route, for each leaf that ``get`` takes out of
+    a run: within ``tol`` relative L2, or within NOISE_FACTOR times the
+    rounding floor (the distance each route moves when only the order of
+    its batch sums changes). Returns the record; fails the phase."""
+    k, p = get(runs["kernel"]), get(runs["plain"])
+    kp, pp = get(runs["kernel_perm"]), get(runs["plain_perm"])
+    ratios, worst, rel_all = [], (None, 0.0), []
+    for leaf, ref in p.items():
+        norm = max(ref.norm().item(), 1e-30)
+        diff = (k[leaf] - ref).norm().item()
+        floor = math.hypot((k[leaf] - kp[leaf]).norm().item(),
+                           (ref - pp[leaf]).norm().item())
+        rel_all.append(diff / norm)
+        ok = diff <= tol * norm or diff <= NOISE_FACTOR * floor
+        ratio = diff / max(floor, 1e-30)
+        ratios.append(ratio)
+        if not ok:
+            fail("R2", f"{name} {leaf}: kernel vs plain {diff / norm:.3e} "
+                       f"relative, {ratio:.2f}x the rounding floor "
+                       f"({floor / norm:.3e} relative)")
+        if diff / norm > worst[1]:
+            worst = (leaf, diff / norm)
+    rec = {"rel_median": float(np.median(rel_all)), "rel_worst": worst[1],
+           "worst_leaf": worst[0],
+           "floor_ratio_median": float(np.median(ratios)),
+           "floor_ratio_worst": max(ratios)}
+    log(f"[R2] {name}: kernel vs plain rel L2 median {rec['rel_median']:.3e}"
+        f", worst {worst[1]:.3e} ({worst[0]}); x the rounding floor: median "
+        f"{rec['floor_ratio_median']:.2f}, worst {rec['floor_ratio_worst']:.2f}"
+        f" (gate: {tol:g} relative or {NOISE_FACTOR:g}x the floor)")
+    return rec
+
+
+def phase_resnet_train(dev, seed):
+    """R2: float32 training of ResNet-50 at batch 32 x 224 (full width and
+    depth), random labels, two Momentum(0.1, 0.9) steps through the
+    kernels and through their plain versions from the same state, and the
+    same two runs with the batch permuted (the rounding floor: the same
+    function with its batch sums in another order). Gates: the first loss
+    within 1e-4 relative; each first-step gradient leaf within 1e-3
+    relative L2, each leaf of BN running stats within 1e-4 and the last
+    loss within 1e-4 relative, or any of them within NOISE_FACTOR times
+    its floor; 108/16/16/16 launches a step through the kernels, none
+    through the plain versions."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import nn_ops
+    nn_ops.set_conv_fused(True)
+    model, params, opt, _, x, _ = bench.build(
+        R2_BATCH, R_SIZE, "", dev, seed, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # random labels: with the bench's labels (all 0) the loss is ~0 from
+    # the second step on, and the parity check would see nothing
+    labels = torch.randint(0, 1000, (R2_BATCH,), device=dev, generator=gen)
+    perm = torch.randperm(R2_BATCH, device=dev, generator=gen)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for route in ("kernel", "plain", "kernel_perm", "plain_perm"):
+        runs[route] = r2_run(model, params, opt, init, x, labels,
+                             route.startswith("plain"),
+                             perm if route.endswith("perm") else None)
+        log(f"[R2] {route:<11} losses "
+            f"{', '.join(f'{v:.6f}' for v in runs[route]['losses'])}; "
+            f"launches a step {runs[route]['counts'][0]}")
+    for route, run in runs.items():
+        want = R_PER_STEP if route.startswith("kernel") else \
+            {k: 0 for k in R_PER_STEP}
+        if any(c != want for c in run["counts"]):
+            fail("R2", f"{route}: launches a step {run['counts']}, "
+                       f"expected {want}")
+        if not all(math.isfinite(v) for v in run["losses"]):
+            fail("R2", f"{route}: non-finite loss {run['losses']}")
+    first = abs(runs["kernel"]["losses"][0] - runs["plain"]["losses"][0]) \
+        / abs(runs["plain"]["losses"][0])
+    log(f"[R2] first loss: kernel vs plain {first:.3e} relative (gate 1e-4)")
+    if first > 1e-4:
+        fail("R2", f"first loss parts by {first:.3e}")
+    rec = {"losses": {r: v["losses"] for r, v in runs.items()},
+           "first_loss_rel": first,
+           "launches_per_step": runs["kernel"]["counts"][0],
+           "grads": r2_gate("first-step gradients", runs,
+                            lambda r: r["grads"], 1e-3),
+           "bn_stats": r2_gate("BN running stats after 2 steps", runs,
+                               lambda r: r["stats"], 1e-4),
+           "last_loss": r2_gate("last loss", runs, lambda r: {
+               "loss": torch.tensor([r["losses"][-1]], dtype=torch.float64)},
+               1e-4)}
+    del model, params, opt, x, runs, init
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_resnet_bench(dev, seed):
+    """R3 + R4: the bench step (``paddle_tpu_torch/bench.py``) at batch
+    256 x 224 in bf16, lowp default then ``lowp=""``. In each: a warm-up
+    step; the counted step of the main path (counts set to 0 just before,
+    read just after: 108/16/16/16); three timed steps (imgs/s over all
+    three); one profiled step (device busy time, idle share over its own
+    wall time, and in the lowp default
+    each kernel's device time from its own launches). In ``lowp=""`` an
+    eval forward with the conv+BN+relu epilogue: 36 brgemm and 16 convkxk
+    launches, finite logits."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import nn_ops
+    nn_ops.set_conv_fused(True)
+    out = {}
+    for lowp in (bench.DEFAULT_LOWP, ""):
+        label = lowp or "bf16"
+        model, params, opt, state, x, labels = bench.build(
+            R3_BATCH, R_SIZE, lowp, dev, seed)
+
+        def step():
+            return bench.train_step(model, params, opt, state, x, labels)
+
+        losses = [step().item()]
+        torch.cuda.synchronize()
+        zero_r_counts()
+        losses.append(step().item())               # the main path's step
+        torch.cuda.synchronize()
+        counts = r_counts()
+        if counts != R_PER_STEP:
+            fail("R3", f"{label}: launches in the step {counts}, expected "
+                       f"{R_PER_STEP}")
+        wall = []
+        for _ in range(R3_TIMED):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        busy, kernels, prof_ms = profiled(step,
+                                          f"the ResNet-50 step ({label})")
+        step_ms = sum(wall) / len(wall)
+        if not all(math.isfinite(v) for v in losses):
+            fail("R3", f"{label}: non-finite loss {losses}")
+        rec = {"losses": losses, "launches": counts, "wall_ms": wall,
+               "step_ms": step_ms, "imgs_per_s": R3_BATCH / step_ms * 1e3,
+               "device_busy_ms": busy or None, "profiled_wall_ms": prof_ms,
+               "idle_share": (1.0 - busy / prof_ms) if busy else None,
+               "top_kernels": [{"name": n[:120], "count": c, "device_ms": t}
+                               for n, c, t in kernels[:15]]}
+        if kernels:
+            rec["kernels_in_step"] = {
+                key: {"count": sum(r[1] for r in kernels if sym in r[0]),
+                      "device_ms": sum(r[2] for r in kernels
+                                       if sym in r[0])}
+                for key, sym in R_SYMBOLS.items()}
+        log(f"[R3] {label}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
+            f"launches a step {counts}; step "
+            f"{', '.join(f'{t:.1f}' for t in wall)} ms, "
+            f"{rec['imgs_per_s']:.1f} imgs/s over them; profiled step: "
+            f"device busy {busy:.1f} of {prof_ms:.1f} ms (idle share "
+            f"{rec['idle_share'] if busy else float('nan'):.3f})")
+        for n, c, t in kernels[:12]:
+            log(f"[R3]   {t:9.3f} ms {c:6d}x  {n[:100]}")
+        if lowp == "":
+            model.eval()
+            zero_r_counts()
+            with torch.no_grad():
+                logits = model(x)
+            torch.cuda.synchronize()
+            ev = r_counts()
+            ok = ev == R_EVAL and bool(torch.isfinite(logits).all()) and \
+                tuple(logits.shape) == (R3_BATCH, 1000)
+            rec["eval"] = {"launches": ev, "ok": ok}
+            log(f"[R3] eval forward (conv+BN+relu epilogue): launches {ev}, "
+                f"logits {tuple(logits.shape)} finite: {ok}")
+            if not ok:
+                fail("R3", f"eval forward: launches {ev}, expected {R_EVAL}")
+        out[label] = rec
+        del model, params, opt, state, x
+        torch.cuda.empty_cache()
+    if "kernels_in_step" not in out["grad+out+blk+stem+bnres"]:
+        fail("R4", "the profiled step recorded no device activity")
+    return out
+
+
+def library_call(name, shape, x, w, g):
+    """One PyTorch call computing what a kernel call computes, as a
+    yardstick the port never calls: ``torch.matmul`` for the 1x1 GEMMs,
+    cuDNN through ``F.conv2d`` / ``convolution_backward`` in channels_last
+    for the 3x3 ones."""
+    h, c, o, k, s = shape
+    if k == 1:
+        xs = x[:, ::s, ::s, :]
+        m = xs.shape[0] * xs.shape[1] * xs.shape[2]
+        x2, g2 = xs.reshape(m, c).contiguous(), g.reshape(m, o)
+        w2 = w.reshape(o, c)
+        return {"brgemm_fwd": lambda: torch.matmul(x2, w2.t()),
+                "brgemm_dx": lambda: torch.matmul(g2, w2),
+                "brgemm_dw": lambda: torch.matmul(x2.t(), g2)}[name]
+    xn = x.permute(0, 3, 1, 2)
+    gn = g.permute(0, 3, 1, 2)
+    wn = w.contiguous(memory_format=torch.channels_last)
+    if name == "convkxk":
+        return lambda: torch.nn.functional.conv2d(xn, wn, stride=s,
+                                                  padding=1)
+    mask = [name == "convkxk_dx", name == "convkxk_dw", False]
+    return lambda: torch.ops.aten.convolution_backward(
+        gn, xn, wn, None, [s, s], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+
+def phase_resnet_numbers(step_rec, dev, seed, iters=3):
+    """R4: per kernel, its device time a launch in the profiled bf16 step
+    (the lowp default), beside the mean over the step's launches of its
+    bound (the larger of bytes / HBM rate and flops / bf16 peak), of its
+    plain version and of a library call (CUDA events, ``iters`` calls a
+    distinct shape, weighted by how often the step runs it)."""
+    shapes = resnet50_conv_shapes()
+    counts = {}
+    for sh in shapes:
+        counts[sh] = counts.get(sh, 0) + 1
+    acc = {k: {"bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bytes_bound": 0, "n": 0} for k in RESNET_KERNELS}
+    for shape, mult in counts.items():
+        x, w, g = r_inputs(shape, R3_BATCH, torch.bfloat16, dev, seed)
+        nbytes, flops = conv_work(shape, R3_BATCH, 2)
+        b_ms, by = bound_ms(nbytes, flops, torch.bfloat16)
+        for name, (_, plain) in conv_calls(shape, x, w, g).items():
+            key = "brgemm" if name.startswith("brgemm") else name
+            a = acc[key]
+            a["n"] += mult
+            a["bound_ms"] += mult * b_ms
+            a["bytes_bound"] += mult * (by == "bytes")
+            a["plain_ms"] += mult * time_ms(plain, [()], iters)
+            a["library_ms"] += mult * time_ms(
+                library_call(name, shape, x, w, g), [()], iters)
+        del x, w, g
+        torch.cuda.empty_cache()
+    numbers = {}
+    in_step = step_rec["kernels_in_step"]
+    for key, a in acc.items():
+        launches = R_PER_STEP[key]
+        if a["n"] != launches:
+            fail("R4", f"{key}: {a['n']} calls in the shape table, "
+                       f"{launches} a step")
+        ms = in_step[key]["device_ms"] / launches
+        rec = {"ms": ms, "launches_per_step": launches,
+               "bound_ms": a["bound_ms"] / launches,
+               "bound_by": "bytes" if a["bytes_bound"] * 2 > launches
+               else "operations",
+               "plain_ms": a["plain_ms"] / launches,
+               "library_ms": a["library_ms"] / launches,
+               "device_ms_in_step": in_step[key]["device_ms"],
+               "profiled_kernels_in_step": in_step[key]["count"]}
+        numbers[key] = rec
+        log(f"[R4] {key} (bf16, mean over the step's {launches} launches): "
+            f"kernel {ms:.3f} ms (device), plain {rec['plain_ms']:.3f} ms, "
+            f"library {rec['library_ms']:.3f} ms (CUDA events); bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) = "
+            f"{rec['bound_ms'] / ms * 100:.2f}% of the kernel's time")
+    return numbers
+
+
 def gpu_name_and_power():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1354,6 +1934,11 @@ def main(argv=None):
     t_start = time.perf_counter()
     report = {"card": card, "seed": args.seed}
     report["build"] = phase_build()
+    report["resnet_kernels"], r_worst = phase_resnet_kernels(dev, args.seed)
+    report["resnet_train"] = phase_resnet_train(dev, args.seed)
+    report["resnet_bench"] = phase_resnet_bench(dev, args.seed)
+    r_main = report["resnet_bench"]["grad+out+blk+stem+bnres"]
+    report["resnet_numbers"] = phase_resnet_numbers(r_main, dev, args.seed)
     report["kernels"], worst = phase_kernels(dev, args.seed)
     model_bf16 = full_width_model(torch.bfloat16, dev, args.seed)
     report["serving"] = phase_serving(model_bf16, dev, args.seed)
@@ -1381,6 +1966,9 @@ def main(argv=None):
 
     launches = dict(report["train"]["launches"])
     launches["flash_fwd"] += serving_launches
+    # the conv kernels: the counted step of the bench (lowp default)
+    launches.update(r_main["launches"])
+    worst.update(r_worst)
     # flash_fwd's times are the serving decoder shape's (12 of every 12
     # launches per decode step); its other shapes, the training one
     # included, are in "shapes"
@@ -1404,6 +1992,8 @@ def main(argv=None):
                 dict({k: train_numbers[name][k] for k in keys},
                      case="train", dtype="bfloat16",
                      shape=list(TRAIN_FLASH[1:6]))]
+        elif name in RESNET_KERNELS:
+            rec.update({k: report["resnet_numbers"][name][k] for k in keys})
         else:
             rec.update(train_numbers[name])
         kernels_line.append(rec)

@@ -1,10 +1,12 @@
-"""Carry the JAX package's Transformer parameters and optimizer state into
-the port, and name the port's parameters by their JAX paths.
+"""Carry the JAX package's parameters (and BatchNorm state) and optimizer
+state into the port, and name the port's parameters by their JAX paths.
 
 The JAX tree is a nested dict of arrays (numpy, or anything
-``np.asarray`` takes), either the whole variables dict or its ``"params"``
-subtree. Paths map one to one onto the port's parameter names:
-``enc_layers_3/attn/q_proj/weight`` -> ``enc_layers.3.attn.q_proj.weight``.
+``np.asarray`` takes), either the whole variables dict (``{"params": ...,
+"state": ...}``) or its ``"params"`` subtree. Paths map one to one onto the
+port's parameter and buffer names: ``enc_layers_3/attn/q_proj/weight`` ->
+``enc_layers.3.attn.q_proj.weight``, ``stage0_1/conv0/bn/mean`` ->
+``stage0.1.conv0.bn.mean`` (a ResNet's running stats, from ``"state"``).
 
 Layouts: the port keeps the JAX layouts, so nothing is transposed here.
 ``Linear`` weights stay ``[in, out]`` and are applied as ``x @ w``.
@@ -29,7 +31,8 @@ import re
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(enc_layers|dec_layers)_(\d+)$")
+_LAYER = re.compile(r"^(enc_layers|dec_layers|stage\d+)_(\d+)$")
+_LISTS = re.compile(r"^(enc_layers|dec_layers|stage\d+)$")
 
 
 def _flatten(tree, prefix=()):
@@ -44,7 +47,7 @@ def _jax_path(name: str):
     parts = name.split(".")
     out = []
     for p in parts:
-        if p.isdigit() and out and out[-1] in ("enc_layers", "dec_layers"):
+        if p.isdigit() and out and _LISTS.match(out[-1]):
             out[-1] = f"{out[-1]}_{p}"
         else:
             out.append(p)
@@ -59,32 +62,60 @@ def _port_name(path) -> str:
     return ".".join(parts)
 
 
-@torch.no_grad()
-def from_jax_variables(params, model):
-    """Copy every leaf of the JAX tree into ``model``'s parameter of the
-    same path, on the parameter's device and in its dtype. Raises if a
-    leaf has no counterpart, a shape differs, or a port parameter is left
-    without a value."""
-    if "params" in params:
-        params = params["params"]
+def _copy_tree(tree, get, what):
+    """Copy every leaf of ``tree`` into ``get(port name)``; returns the ids
+    of the tensors assigned."""
     assigned = set()
-    for path, value in _flatten(params):
+    for path, value in _flatten(tree):
         name = _port_name(path)
         try:
-            p = model.get_parameter(name)
+            t = get(name)
         except AttributeError as e:
-            raise KeyError(f"JAX param {'/'.join(path)} has no counterpart "
+            raise KeyError(f"JAX {what} {'/'.join(path)} has no counterpart "
                            f"{name!r} in the port's model") from e
         arr = np.asarray(value)
-        if tuple(arr.shape) != tuple(p.shape):
+        if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{'/'.join(path)}: JAX shape {arr.shape} vs "
-                             f"port {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-        assigned.add(id(p))
+                             f"port {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        assigned.add(id(t))
+    return assigned
+
+
+@torch.no_grad()
+def from_jax_variables(variables, model):
+    """Copy every leaf of the JAX tree into ``model``'s parameter (and,
+    from ``"state"``, buffer) of the same path, on its device and in its
+    dtype. Raises if a leaf has no counterpart, a shape differs, or a port
+    parameter (or, when a state is given, a persistent buffer) is left
+    without a value."""
+    params = variables["params"] if "params" in variables else variables
+    assigned = _copy_tree(params, model.get_parameter, "param")
     missing = [n for n, p in model.named_parameters() if id(p) not in assigned]
+    if "state" in variables:
+        done = _copy_tree(variables["state"], model.get_buffer, "state")
+        missing += [n for n, b in model.named_buffers()
+                    if id(b) not in done and _persistent(model, n)]
     if missing:
-        raise KeyError(f"port parameters without a JAX value: {missing}")
+        raise KeyError(f"port tensors without a JAX value: {missing}")
     return model
+
+
+def _persistent(model, name):
+    owner, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(owner) if owner else model
+    return leaf not in mod._non_persistent_buffers_set
+
+
+@torch.no_grad()
+def state_tree(model):
+    """{JAX path: buffer} over ``model``'s persistent buffers (a ResNet's
+    BN running stats: the JAX ``"state"`` collection), paths sorted."""
+    out = {}
+    for name, b in model.named_buffers():
+        if _persistent(model, name):
+            out["/".join(_jax_path(name))] = b
+    return dict(sorted(out.items()))
 
 
 def param_tree(model):

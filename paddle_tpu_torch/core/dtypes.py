@@ -2,6 +2,8 @@
 ``paddle_tpu/core/dtypes.py``).
 
 bfloat16 is first-class: it is the compute dtype of the serving config.
+The two float8 formats hold the fp8 storage edges of the ResNet path
+(``paddle_tpu_torch/amp``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ _DTYPES = {
     "float32": torch.float32,
     "float64": torch.float64,
     "complex64": torch.complex64,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
 }
 
 _NAMES = {v: k for k, v in _DTYPES.items()}

@@ -99,7 +99,8 @@ def test_training_phase_shapes_are_transformer_long():
     assert (b, h, tq, tk, d, causal) == (
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
-    assert chip_smoke.SOURCES == ["flash_bwd", "flash_fwd", "fused_update"]
+    assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "flash_bwd",
+                                  "flash_fwd", "fused_update"]
 
 
 def test_permuted_keys_is_the_same_attention():
@@ -122,3 +123,27 @@ def test_permuted_keys_is_the_same_attention():
     assert A.flash_attn_op is op
     for a, b in zip(*runs):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_resnet50_conv_shapes_count_the_steps_launches():
+    shapes = chip_smoke.resnet50_conv_shapes(224)
+    assert sum(s[3] == 1 for s in shapes) == 36
+    assert sum(s[3] == 3 for s in shapes) == 16
+    assert shapes[0] == (56, 64, 64, 1, 1)
+    assert (56, 128, 128, 3, 2) in shapes and (56, 256, 512, 1, 2) in shapes
+    assert shapes[-1] == (7, 512, 2048, 1, 1)
+    per_step = chip_smoke.R_PER_STEP
+    assert per_step["brgemm"] == 3 * 36 and per_step["convkxk_dw"] == 16
+
+
+@pytest.mark.parametrize("shape,batch,nbytes,flops", [
+    # 3x3, pad 1, stride 1 on 4x4: 2+3+3+2 = 10 real taps a dim
+    ((4, 2, 3, 3, 1), 1, 2 * (4 * 4 * 2 + 3 * 2 * 9 + 16 * 3),
+     2 * 10 * 10 * 2 * 3),
+    # 1x1 stride 2 on 5x5: 3x3 outputs; only the sliced x is read
+    ((5, 2, 3, 1, 2), 2, 2 * (18 * 2 + 6 + 18 * 3), 2 * 18 * 2 * 3),
+    # 3x3 stride 2 on 5x5: rows 0, 2, 4 -> taps 2 + 3 + 2
+    ((5, 1, 1, 3, 2), 1, 2 * (25 + 9 + 9), 2 * 7 * 7),
+])
+def test_conv_work_counts_real_taps(shape, batch, nbytes, flops):
+    assert chip_smoke.conv_work(shape, batch, 2) == (nbytes, flops)

@@ -249,3 +249,138 @@ def test_fused_update_matches_plain_version(cuda, kind, clip):
         ulp = (params[k].view(torch.int32).long()
                - plain[k].view(torch.int32).long()).abs().max().item()
         assert ulp <= 4, (k, ulp)
+
+
+# -- conv kernels (csrc/brgemm.cu, csrc/conv_kxk.cu) -------------------------
+#
+# Tolerances relative to the plain output's largest magnitude: float32
+# forward 1e-5, dx/dw 1e-4 (the same float32 sums in another order);
+# bfloat16 2e-2 (bf16 in and out, float32 sums on both sides).
+
+# (h, c, o, k, stride): edges of every kind (M, N and K not multiples of
+# the tiles, N = 64, C = 3, odd sizes, strided 1x1 and 3x3)
+CONV_SHAPES = [(13, 24, 40, 1, 1), (13, 24, 40, 1, 2), (9, 16, 64, 3, 1),
+               (9, 16, 70, 3, 2), (8, 64, 64, 3, 2), (7, 3, 130, 3, 1)]
+
+
+def _conv_case(dev, shape, dtype, extra):
+    import chip_smoke
+    x, w, g = chip_smoke.r_inputs(shape, 3, dtype, dev, 0)
+    ex = None
+    if extra:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        o = shape[2]
+        ex = (torch.rand(o, device=dev, generator=gen) + 0.5,
+              torch.randn(o, device=dev, generator=gen),
+              torch.randn(g.shape, device=dev, generator=gen).to(dtype),
+              torch.relu(torch.randn(g.shape, device=dev,
+                                     generator=gen)).to(dtype))
+    return chip_smoke.conv_calls(shape, x, w, g, ex)
+
+
+@pytest.mark.parametrize("extra", [False, True], ids=["path", "epi_fold"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_conv_kernels_match_plain_versions(cuda, shape, dtype, extra):
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    counters = {"brgemm": tiles.brgemm, "convkxk": cf.convkxk,
+                "convkxk_dx": cf.convkxk_dx, "convkxk_dw": cf.convkxk_dw}
+    for name, (kern, plain) in _conv_case(cuda, shape, dtype,
+                                          extra).items():
+        counter = counters["brgemm" if name.startswith("brgemm") else name]
+        before = counter.launches
+        got = kern()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, name
+        ref = plain()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert torch.isfinite(got).all(), name
+        err = ((got.float() - ref.float()).abs().max()
+               / ref.float().abs().max().clamp(min=1e-30)).item()
+        fwd = name in ("brgemm_fwd", "convkxk")
+        tol = (1e-5 if fwd else 1e-4) if dtype == torch.float32 else 2e-2
+        assert err < tol, (name, err)
+
+
+@pytest.mark.parametrize("k,stride", [(1, 2), (3, 2), (3, 1)])
+def test_conv2d_bn_act_launches_forward_dx_dw(cuda, k, stride):
+    """The autograd route on the card: one forward and, in the backward,
+    one dx and one dw launch; the gradients equal the CPU's plain route."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 9, 9, 16, generator=gen)
+    w = torch.randn(32, 16, k, k, generator=gen) * 0.2
+    scale, bias = torch.rand(32, generator=gen) + 0.5, torch.randn(32)
+    pad = (k - 1) // 2
+    oh = (9 + 2 * pad - k) // stride + 1
+    cot = torch.randn(2, oh, oh, 32, generator=gen)
+    outs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in (x, w, scale, bias)]
+        fwd = (tiles.brgemm if k == 1 else cf.convkxk).launches
+        out = cf.conv2d_bn_act(*leaves, act="relu", stride=stride,
+                               padding=pad)
+        grads = torch.autograd.grad(out, leaves, cot.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            # the forward, and dscale's recompute of the raw conv
+            assert (tiles.brgemm if k == 1 else cf.convkxk).launches == \
+                fwd + (4 if k == 1 else 2)
+        outs[str(dev)] = [out] + list(grads)
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        err = ((b.cpu() - a).abs().max() / a.abs().max()).item()
+        assert err < 1e-4, err
+
+
+def test_conv_wrappers_raise_and_never_fall_back(cuda):
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    a = torch.randn(8, 16, device=cuda)
+    with pytest.raises(TypeError):           # float16: no kernel for it
+        tiles.brgemm(a.half(), a.t().contiguous().half())
+    with pytest.raises(ValueError):          # not contiguous
+        tiles.brgemm_cuda(a.t(), a)
+    with pytest.raises(TypeError):           # operands of two dtypes
+        tiles.brgemm_cuda(a, a.t().contiguous().bfloat16())
+    x = torch.randn(1, 5, 5, 4, device=cuda)
+    w = torch.randn(4, 4, 3, 3, device=cuda)
+    with pytest.raises(TypeError):
+        cf.convkxk(x.half(), w.half())
+    with pytest.raises(ValueError):          # the wrong cotangent shape
+        cf.convkxk_dx(x, None, None, w, x.shape, x.dtype, (1, 1),
+                      ((0, 0), (0, 0)), (1, 1))
+
+
+def test_max_pool_ties_on_nhwc_cuda_tensors_take_the_first_max(cuda):
+    """channels_last CUDA tensors take another max-pool kernel than the
+    CPU's: forward and gradient must still equal the CPU's (the first
+    maximum of a window takes the gradient, as in the JAX reference)."""
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator().manual_seed(0)
+    x = torch.relu(torch.randn(2, 30, 31, 8, generator=gen))
+    x[:, 3:12, 4:10, :] = 0.0
+    x[1, 14:20, 14:20, 2] = 1.5
+    outs = []
+    for dev in ("cpu", cuda):
+        for dtype in (torch.float32, torch.bfloat16):
+            leaf = x.to(dev, dtype).requires_grad_()
+            out = nn_ops.pool2d(leaf, 3, "max", 2, 1, data_format="NHWC")
+            cot = (torch.arange(out.numel()) % 5).reshape(out.shape)
+            (g,) = torch.autograd.grad(out, leaf, cot.to(dev, dtype))
+            outs.append((out.float().cpu(), g.float().cpu()))
+    for (o_cpu, g_cpu), (o_gpu, g_gpu) in zip(outs[:2], outs[2:]):
+        assert torch.equal(o_cpu, o_gpu)
+        assert torch.equal(g_cpu, g_gpu)
+
+
+def test_float8_casts_on_the_card_equal_the_cpus(cuda):
+    from paddle_tpu_torch import amp
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    for fn in (amp.to_e4m3_round_trip, amp.e5m2_grad_store):
+        a, b = fn(x), fn(x.to(cuda)).cpu()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        assert bool(same.all()), fn.__name__

@@ -38,7 +38,9 @@ def _submodules():
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     mods = _submodules()
     for m in ("kernels.attention", "kernels.fused_update", "optimizer",
-              "optimizer.clip", "optimizer.lr_scheduler", "ops.loss"):
+              "optimizer.clip", "optimizer.lr_scheduler", "ops.loss",
+              "kernels.tiles", "kernels.conv_fused", "kernels.epilogues",
+              "amp", "initializer", "models.resnet", "bench"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -59,7 +61,8 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     names = {p.name for p in files}
     assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh",
-            "fused_update.cu"} <= names
+            "fused_update.cu", "brgemm.cu", "conv_kxk.cu",
+            "igemm.cuh"} <= names
     offenders = []
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
