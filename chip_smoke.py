@@ -10,31 +10,63 @@ Phases, each of which fails the run (non-zero exit) on its own:
 
 Then the ResNet-50 path (``paddle_tpu_torch/bench.py``'s step with the conv
 kernels on: ``csrc/brgemm.cu`` for the 1x1 convs, ``csrc/conv_kxk.cu`` for
-the 3x3 ones, forward, dx and dw):
+the 3x3 ones, forward, dx and dw; and with ``PADDLE_TPU_POOL_FUSED`` set,
+the stem's max pool in ``csrc/pool_fused.cu``, forward and backward):
 
 R1. kernels  each conv kernel against its plain version at every distinct
              conv shape of ResNet-50 at 224 (batch 8), forward, dx and dw,
              in float32 and bfloat16, plus the epilogue (scale, bias,
              residual, relu) and the cotangent fold at a strided 1x1 and a
-             strided 3x3; max-pool ties on NHWC CUDA tensors;
-R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth):
-             two Momentum steps through the kernels and through their plain
-             versions from the same state, and both again with the batch
-             permuted (the rounding floor: the same function, its batch
-             sums in another order); the first loss, every first-step
-             gradient leaf, the BN running stats and the last loss gated
-             (a fixed tolerance, or twice the floor); 108 brgemm and 16 of
-             each 3x3 kernel launched a step;
+             strided 3x3; max-pool ties on NHWC CUDA tensors (knob off);
+R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth),
+             the pool knob on: two Momentum steps through the kernels and
+             through their plain versions from the same state, and both
+             again with the batch permuted (the rounding floor: the same
+             function, its batch sums in another order); the first loss,
+             every first-step gradient leaf, the BN running stats and the
+             last loss gated (a fixed tolerance, or twice the floor); 108
+             brgemm, 16 of each 3x3 kernel and one of each pool kernel
+             launched a step;
+P1. pool     the pool kernels against their plain versions at the stem's
+             shape (bf16 at batch 256, float32 at batch 8), at odd planes,
+             on windows of ties and on NaN / -inf / finfo.min entries: out
+             and idx equal, dx bit for bit; the plain versions' and
+             ``F.max_pool2d``'s times (and its backward's) beside the
+             bound;
+
+Then the sentiment classifier (``paddle_tpu_torch/imdb_bench.py``, the
+``imdb_real`` step: ``csrc/seqpool.cu`` for the embedding lookup and mean
+pool, Adam):
+
+E1. kernels  seqpool against its plain version, sum and mean, float32 and
+             bf16, at the classifier's shape ([256, 256] ids into a
+             [5149, 128] table) and at kernel_bench.py:98's ([1024, 16]
+             into [500000, 128]), ids out of range included; the kernel's,
+             the plain version's and ``F.embedding_bag``'s times at both;
+E2. train    three float32 Adam steps at full size through the kernels
+             (fused and unfused update) and through the plain versions,
+             and again permuted: losses within 1e-5 relative, the
+             parameters within twice the permutation's floor, untouched
+             table rows unmoved, one seqpool launch a step; then the main
+             path, 20 counted and timed steps unfused and 20 fused
+             (samples/s), and one profiled step (idle share, the kernel's
+             device time) beside its bound and yardsticks;
+
+Back on the ResNet-50 path:
+
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
-             in pure bf16: the main path's counted step (launches as in
-             R2), timed steps (imgs/s over all of them), one profiled step
-             each (device busy time, idle share over its own wall time),
-             and in pure bf16 an eval forward through
-             the conv+BN+relu epilogue (36 + 16 launches);
-R4. numbers  each conv kernel's device time a launch, from its own launches
-             in the profiled lowp step, beside the mean over the step's
-             launches of its bound, its plain version and a library call
-             (``torch.matmul``, cuDNN) that the port never calls.
+             in pure bf16, the pool knob on: the main path's counted step
+             (launches as in R2), timed steps (imgs/s over all of them),
+             one profiled step each (device busy time, idle share over its
+             own wall time); in the lowp default a counted step with the
+             pool knob off (no pool launch) and timed steps with the knob
+             off and on in turns; in pure bf16 an eval forward through the
+             conv+BN+relu epilogue (36 + 16 conv launches, one pool_fwd);
+R4. numbers  each conv and pool kernel's device time a launch, from its own
+             launches in the profiled lowp step, beside the mean over the
+             step's launches of its bound, its plain version and a library
+             call (``torch.matmul``, cuDNN, ``F.max_pool2d``) that the port
+             never calls.
 
 Then the serving path:
 
@@ -110,7 +142,6 @@ import contextlib
 import json
 import math
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -165,6 +196,21 @@ KERNELS = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/conv_kxk.cu",
         "replaces": "paddle_tpu/kernels/conv_fused.py:506",
+    },
+    "pool_fwd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/pool_fused.cu",
+        "replaces": "paddle_tpu/kernels/pool_fused.py:110",
+    },
+    "pool_bwd": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/pool_fused.cu",
+        "replaces": "paddle_tpu/kernels/pool_fused.py:184",
+    },
+    "seqpool": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/seqpool.cu",
+        "replaces": "paddle_tpu/kernels/embedding_pool.py:101",
     },
 }
 # csrc/<name>.cu of every kernel above, one nvcc each
@@ -1382,11 +1428,15 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
 # -- ResNet-50 (R1-R4) ----------------------------------------------------------
 
 RESNET_KERNELS = ("brgemm", "convkxk", "convkxk_dx", "convkxk_dw")
-# launches of a bf16 training step of ResNet-50 (36 1x1 convs: forward, dx
-# and dw each; 16 3x3 convs) and of an eval forward
+# launches of a bf16 training step of ResNet-50 with the conv and pool
+# knobs on (36 1x1 convs: forward, dx and dw each; 16 3x3 convs; the stem's
+# max pool) and of an eval forward
 R_PER_STEP = {"brgemm": 108, "convkxk": 16, "convkxk_dx": 16,
-              "convkxk_dw": 16}
-R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0}
+              "convkxk_dw": 16, "pool_fwd": 1, "pool_bwd": 1}
+R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0,
+          "pool_fwd": 1, "pool_bwd": 0}
+# the step with the pool knob off
+R_POOL_OFF = dict(R_PER_STEP, pool_fwd=0, pool_bwd=0)
 # (forward, backward) gates, relative to the output's largest magnitude
 R_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 R_SIZE, R1_BATCH, R2_BATCH, R3_BATCH = 224, 8, 32, 256
@@ -1394,7 +1444,8 @@ R2_STEPS, R3_TIMED = 2, 3
 # the profiled kernels' names: each kernel's loader type is in its
 # template arguments (the split-K reductions carry it too)
 R_SYMBOLS = {"brgemm": "DenseA", "convkxk": "XRows", "convkxk_dx": "DyRows",
-             "convkxk_dw": "XCols"}
+             "convkxk_dw": "XCols", "pool_fwd": "pool_fwd_kernel",
+             "pool_bwd": "pool_bwd_kernel"}
 
 
 def resnet50_conv_shapes(size=R_SIZE):
@@ -1433,32 +1484,47 @@ def conv_work(shape, batch, esize):
     return nbytes, 2 * batch * taps * taps * c * o
 
 
-def r_counts():
+def r_counters():
     from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import pool_fused as pf
     from paddle_tpu_torch.kernels import tiles
-    return {"brgemm": tiles.brgemm.launches, "convkxk": cf.convkxk.launches,
-            "convkxk_dx": cf.convkxk_dx.launches,
-            "convkxk_dw": cf.convkxk_dw.launches}
+    return {"brgemm": tiles.brgemm, "convkxk": cf.convkxk,
+            "convkxk_dx": cf.convkxk_dx, "convkxk_dw": cf.convkxk_dw,
+            "pool_fwd": pf.pool_fwd, "pool_bwd": pf.pool_bwd}
+
+
+def r_counts():
+    return {k: f.launches for k, f in r_counters().items()}
 
 
 def zero_r_counts():
-    from paddle_tpu_torch.kernels import conv_fused as cf
-    from paddle_tpu_torch.kernels import tiles
-    for f in (tiles.brgemm, cf.convkxk, cf.convkxk_dx, cf.convkxk_dw):
+    for f in r_counters().values():
         f.launches = 0
 
 
+def set_resnet_knobs(pool=True):
+    """The conv kernels on, the stem's max pool on the fused kernels or
+    not, as ``bench.run`` sets them from the environment."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    from paddle_tpu_torch.ops import nn_ops
+    nn_ops.set_conv_fused(True)
+    pf.set_pool_fused(pool)
+
+
 class plain_conv_kernels:
-    """Route the conv kernels' wrappers to their plain versions."""
+    """Route the conv and pool kernels' wrappers to their plain versions."""
     SWAPS = (("tiles", "brgemm_cuda", "brgemm_reference"),
              ("cf", "convkxk_cuda", "convkxk_reference"),
              ("cf", "convkxk_dx_cuda", "convkxk_dx_reference"),
-             ("cf", "convkxk_dw_cuda", "convkxk_dw_reference"))
+             ("cf", "convkxk_dw_cuda", "convkxk_dw_reference"),
+             ("pf", "pool_fwd_cuda", "pool_fwd_reference"),
+             ("pf", "pool_bwd_cuda", "pool_bwd_reference"))
 
     def __enter__(self):
         from paddle_tpu_torch.kernels import conv_fused as cf
+        from paddle_tpu_torch.kernels import pool_fused as pf
         from paddle_tpu_torch.kernels import tiles
-        self.mods = {"tiles": tiles, "cf": cf}
+        self.mods = {"tiles": tiles, "cf": cf, "pf": pf}
         self.saved = []
         for mod, name, plain in self.SWAPS:
             m = self.mods[mod]
@@ -1691,11 +1757,11 @@ def phase_resnet_train(dev, seed):
     within 1e-4 relative; each first-step gradient leaf within 1e-3
     relative L2, each leaf of BN running stats within 1e-4 and the last
     loss within 1e-4 relative, or any of them within NOISE_FACTOR times
-    its floor; 108/16/16/16 launches a step through the kernels, none
-    through the plain versions."""
+    its floor; 108/16/16/16 conv and 1/1 pool launches a step through the
+    kernels (the pool knob is on, so the fused max pool sits inside the
+    same gates), none through the plain versions."""
     from paddle_tpu_torch import bench
-    from paddle_tpu_torch.ops import nn_ops
-    nn_ops.set_conv_fused(True)
+    set_resnet_knobs(pool=True)
     model, params, opt, _, x, _ = bench.build(
         R2_BATCH, R_SIZE, "", dev, seed, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1742,17 +1808,19 @@ def phase_resnet_train(dev, seed):
 
 def phase_resnet_bench(dev, seed):
     """R3 + R4: the bench step (``paddle_tpu_torch/bench.py``) at batch
-    256 x 224 in bf16, lowp default then ``lowp=""``. In each: a warm-up
-    step; the counted step of the main path (counts set to 0 just before,
-    read just after: 108/16/16/16); three timed steps (imgs/s over all
-    three); one profiled step (device busy time, idle share over its own
-    wall time, and in the lowp default
-    each kernel's device time from its own launches). In ``lowp=""`` an
-    eval forward with the conv+BN+relu epilogue: 36 brgemm and 16 convkxk
-    launches, finite logits."""
+    256 x 224 in bf16 with the conv and pool knobs on
+    (``PADDLE_TPU_POOL_FUSED`` set), lowp default then ``lowp=""``. In
+    each: a warm-up step; the counted step of the main path (counts set to
+    0 just before, read just after: 108/16/16/16 conv, 1/1 pool); timed
+    steps (imgs/s over all of them); one profiled step (device busy time,
+    idle share over its own wall time, and in the lowp default each
+    kernel's device time from its own launches). In the lowp default also
+    a counted step with the pool knob off (no pool launch) and timed steps
+    with the knob off and on in turns (off, on, on, off, ...). In
+    ``lowp=""`` an eval forward with the conv+BN+relu epilogue: 36 brgemm,
+    16 convkxk and 1 pool_fwd launches, finite logits."""
     from paddle_tpu_torch import bench
-    from paddle_tpu_torch.ops import nn_ops
-    nn_ops.set_conv_fused(True)
+    set_resnet_knobs(pool=True)
     out = {}
     for lowp in (bench.DEFAULT_LOWP, ""):
         label = lowp or "bf16"
@@ -1771,24 +1839,46 @@ def phase_resnet_bench(dev, seed):
         if counts != R_PER_STEP:
             fail("R3", f"{label}: launches in the step {counts}, expected "
                        f"{R_PER_STEP}")
-        wall = []
-        for _ in range(R3_TIMED):
+        rec = {}
+        if lowp:
+            set_resnet_knobs(pool=False)
+            zero_r_counts()
+            losses.append(step().item())
+            torch.cuda.synchronize()
+            rec["launches_pool_off"] = r_counts()
+            if rec["launches_pool_off"] != R_POOL_OFF:
+                fail("R3", f"{label}, pool knob off: launches "
+                           f"{rec['launches_pool_off']}, expected "
+                           f"{R_POOL_OFF}")
+        walls = {True: [], False: []}
+        # knob off and on in turns, R3_TIMED steps each, in the lowp default
+        turns = [False, True, True, False, False, True] if lowp else \
+            [True] * R3_TIMED
+        for pool in turns:
+            set_resnet_knobs(pool=pool)
             t0 = time.perf_counter()
             loss = step()
             torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
+            walls[pool].append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
+        set_resnet_knobs(pool=True)
+        wall = walls[True]
         busy, kernels, prof_ms = profiled(step,
                                           f"the ResNet-50 step ({label})")
         step_ms = sum(wall) / len(wall)
         if not all(math.isfinite(v) for v in losses):
             fail("R3", f"{label}: non-finite loss {losses}")
-        rec = {"losses": losses, "launches": counts, "wall_ms": wall,
-               "step_ms": step_ms, "imgs_per_s": R3_BATCH / step_ms * 1e3,
-               "device_busy_ms": busy or None, "profiled_wall_ms": prof_ms,
-               "idle_share": (1.0 - busy / prof_ms) if busy else None,
-               "top_kernels": [{"name": n[:120], "count": c, "device_ms": t}
-                               for n, c, t in kernels[:15]]}
+        if walls[False]:
+            off_ms = sum(walls[False]) / len(walls[False])
+            rec.update(wall_ms_pool_off=walls[False], step_ms_pool_off=off_ms,
+                       imgs_per_s_pool_off=R3_BATCH / off_ms * 1e3)
+        rec.update(
+            losses=losses, launches=counts, wall_ms=wall, step_ms=step_ms,
+            imgs_per_s=R3_BATCH / step_ms * 1e3,
+            device_busy_ms=busy or None, profiled_wall_ms=prof_ms,
+            idle_share=(1.0 - busy / prof_ms) if busy else None,
+            top_kernels=[{"name": n[:120], "count": c, "device_ms": t}
+                         for n, c, t in kernels[:15]])
         if kernels:
             rec["kernels_in_step"] = {
                 key: {"count": sum(r[1] for r in kernels if sym in r[0]),
@@ -1796,11 +1886,17 @@ def phase_resnet_bench(dev, seed):
                                        if sym in r[0])}
                 for key, sym in R_SYMBOLS.items()}
         log(f"[R3] {label}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
-            f"launches a step {counts}; step "
+            f"launches a step {counts}; pool knob on: step "
             f"{', '.join(f'{t:.1f}' for t in wall)} ms, "
             f"{rec['imgs_per_s']:.1f} imgs/s over them; profiled step: "
             f"device busy {busy:.1f} of {prof_ms:.1f} ms (idle share "
             f"{rec['idle_share'] if busy else float('nan'):.3f})")
+        if walls[False]:
+            log(f"[R3] {label}: pool knob off: launches "
+                f"{rec['launches_pool_off']}; step "
+                f"{', '.join(f'{t:.1f}' for t in walls[False])} ms, "
+                f"{rec['imgs_per_s_pool_off']:.1f} imgs/s over them (on/off "
+                f"{rec['imgs_per_s'] / rec['imgs_per_s_pool_off']:.4f})")
         for n, c, t in kernels[:12]:
             log(f"[R3]   {t:9.3f} ms {c:6d}x  {n[:100]}")
         if lowp == "":
@@ -1902,12 +1998,432 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     return numbers
 
 
-def gpu_name_and_power():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
-        "nvidia-smi gave no output"
+# -- the fused max pool (P1) ----------------------------------------------------
+
+POOL_CFG = (3, 2, 1)            # the stem's Pool2D(3, "max", 2, 1)
+# (case, batch, h, w, c, dtype, input): the stem's shape in bf16 at the
+# bench's batch and in float32 at R1's, odd planes, windows of ties, and
+# NaN / -inf / finfo.min entries (which the kernel never picks)
+P1_CASES = [
+    ("stem", R3_BATCH, 112, 112, 64, torch.bfloat16, "randn"),
+    ("stem", R1_BATCH, 112, 112, 64, torch.float32, "randn"),
+    ("odd", 3, 37, 29, 24, torch.float32, "randn"),
+    ("odd", 3, 37, 29, 24, torch.bfloat16, "randn"),
+    ("ties", R1_BATCH, 112, 112, 64, torch.bfloat16, "ties"),
+    ("specials", 2, 15, 17, 8, torch.float32, "specials"),
+]
+
+
+def pool_input(case, dev, seed):
+    _, b, h, w, c, dtype, kind = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, device=dev, generator=gen)
+    if kind == "ties":                  # post-relu values on a few levels
+        x = torch.relu(torch.round(x * 2) / 2)
+    elif kind == "specials":
+        flat = x.view(-1)
+        flat[::7] = float("nan")
+        flat[3::11] = float("-inf")
+        flat[5::13] = torch.finfo(torch.float32).min
+        x[0, :2, :2, :] = float("-inf")   # windows with nothing to pick
+    return x.to(dtype)
+
+
+def bits(t):
+    """The raw bits of a float32 or bf16 tensor, for bitwise equality."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def pool_work(geo, esize):
+    """(bytes, operations) of one pool call, forward or backward alike: the
+    forward reads x and writes out and the int32 idx, the backward reads g
+    and idx and writes dx, each once; one float32 compare per window tap
+    of each output."""
+    n, h, w, c, oh, ow, kh, kw = geo[:8]
+    x_el, o_el = n * h * w * c, n * oh * ow * c
+    return esize * (x_el + o_el) + 4 * o_el, o_el * kh * kw
+
+
+def phase_pool(dev, seed):
+    """P1: the pool kernels against their plain versions (out and idx
+    equal, dx bit for bit) on every case of P1_CASES, one launch of each a
+    call; then at the stem's shape in bf16 (batch 256), the bound, the
+    plain versions' and the library's times (``F.max_pool2d(...,
+    return_indices=True)`` on the channels_last view, and its backward),
+    and the kernels' own time a call (CUDA events)."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    results = []
+    for case in P1_CASES:
+        x = pool_input(case, dev, seed)
+        geo = pf.geometry(x.shape, *POOL_CFG)
+        before = (pf.pool_fwd.launches, pf.pool_bwd.launches)
+        out, idx = pf.pool_fwd_cuda(x, geo)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        g = torch.randn(out.shape, device=dev, generator=gen).to(x.dtype)
+        dx = pf.pool_bwd_cuda(g, idx, geo, x.dtype)
+        torch.cuda.synchronize()
+        launched = (pf.pool_fwd.launches - before[0],
+                    pf.pool_bwd.launches - before[1])
+        ref_out, ref_idx = pf.pool_fwd_reference(x, geo)
+        ref_dx = pf.pool_bwd_reference(g, ref_idx, geo, x.dtype)
+        rec = {"case": case[0], "dtype": str(x.dtype).split(".")[-1],
+               "shape": list(x.shape),
+               "out_equal": torch.equal(out, ref_out),
+               "idx_equal": torch.equal(idx, ref_idx),
+               "dx_bitwise": torch.equal(bits(dx), bits(ref_dx)),
+               "out_max_abs_err": (out.float() - ref_out.float()).abs()
+               .max().item(),
+               "max_abs_err": (dx.float() - ref_dx.float()).abs().max()
+               .item(), "unpicked_windows": int((idx == -1).sum()),
+               "launches": launched}
+        rec["ok"] = rec["out_equal"] and rec["idx_equal"] and \
+            rec["dx_bitwise"] and launched == (1, 1)
+        results.append(rec)
+        log(f"[P1] {rec['case']:<8} {rec['dtype']:>8} {rec['shape']}: out "
+            f"{'equal' if rec['out_equal'] else 'DIFFERS'}, idx "
+            f"{'equal' if rec['idx_equal'] else 'DIFFERS'}, dx "
+            f"{'bit-identical' if rec['dx_bitwise'] else 'DIFFERS'} (max "
+            f"|kernel - plain| {rec['max_abs_err']:.3e}); windows with "
+            f"nothing to pick {rec['unpicked_windows']}; launches {launched}")
+        if not rec["ok"]:
+            fail("P1", f"{rec}")
+        del x, out, idx, g, dx, ref_out, ref_idx, ref_dx
+    torch.cuda.empty_cache()
+
+    x = pool_input(P1_CASES[0], dev, seed)
+    geo = pf.geometry(x.shape, *POOL_CFG)
+    out, idx = pf.pool_fwd_cuda(x, geo)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = torch.randn(out.shape, device=dev, generator=gen).to(x.dtype)
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    _, lib_idx = torch.nn.functional.max_pool2d(xn, 3, 2, 1,
+                                                return_indices=True)
+    bnd = bound_ms(*pool_work(geo, x.element_size()), torch.float32)
+    numbers = {}
+    for key, kern, plain, lib in (
+            ("pool_fwd", lambda: pf.pool_fwd_cuda(x, geo),
+             lambda: pf.pool_fwd_reference(x, geo),
+             lambda: torch.nn.functional.max_pool2d(
+                 xn, 3, 2, 1, return_indices=True)),
+            ("pool_bwd", lambda: pf.pool_bwd_cuda(g, idx, geo, x.dtype),
+             lambda: pf.pool_bwd_reference(g, idx, geo, x.dtype),
+             lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                 gn, xn, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx))):
+        numbers[key] = {"call_ms": time_ms(kern, [()], 20),
+                        "plain_ms": time_ms(plain, [()], 3),
+                        "library_ms": time_ms(lib, [()], 20),
+                        "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "bytes": pool_work(geo, x.element_size())[0]}
+        r = numbers[key]
+        log(f"[P1] {key} bf16 {list(x.shape)} 3x3/s2/p1: kernel "
+            f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, library "
+            f"{r['library_ms']:.4f} ms (CUDA events); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} bytes)")
+    del x, out, idx, g, xn, gn, lib_idx
+    torch.cuda.empty_cache()
+    return results, numbers
+
+
+# -- the IMDB sentiment classifier (E1, E2) -------------------------------------
+
+# (case, batch, seq, vocab, dim): the classifier's lookups (imdb_real at
+# full size) and kernel_bench.py:98's, a 256 MB table larger than the L2
+E_SHAPES = [("imdb", 256, 256, 5149, 128),
+            ("kernel_bench", 1024, 16, 500000, 128)]
+# max |kernel - plain| / max |plain|: float32 sums in another order
+# (tests/test_kernels_interpret.py:55-67 holds 1e-5); bf16 outputs round
+# once more
+E_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+E_STEPS, E_TIMED = 3, 20
+E_FLOOR_FACTOR = 2.0
+
+
+def seqpool_work(ids, d, esize):
+    """(bytes, operations) of one seqpool call on these (clamped) ids: the
+    distinct table rows they name, the int32 ids and the output, each
+    moved once; one float32 add per id and column."""
+    b, s = ids.shape
+    rows = torch.unique(ids).numel()
+    return esize * d * (rows + b) + 4 * b * s, b * s * d
+
+
+def e_counts():
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    from paddle_tpu_torch.kernels import fused_update as fu
+    return {"seqpool": ep.seqpool.launches,
+            "fused_update": fu.fused_update_step.launches}
+
+
+def zero_e_counts():
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    from paddle_tpu_torch.kernels import fused_update as fu
+    ep.seqpool.launches = 0
+    fu.fused_update_step.launches = 0
+
+
+@contextlib.contextmanager
+def plain_seqpool():
+    """Route the seqpool wrapper to its plain version."""
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    saved = ep.seqpool_cuda
+    ep.seqpool_cuda = ep.seqpool_reference
+    try:
+        yield
+    finally:
+        ep.seqpool_cuda = saved
+
+
+def seqpool_yardsticks(ids, table, mean=True):
+    """The kernel's, its plain version's and ``F.embedding_bag``'s time a
+    call (CUDA events) on these clamped ids."""
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    ids32, ids64 = ids.to(torch.int32).contiguous(), ids.long()
+    mode = "mean" if mean else "sum"
+    return {"call_ms": time_ms(lambda: ep.seqpool_cuda(ids32, table, mean),
+                               [()], 50),
+            "plain_ms": time_ms(lambda: ep.seqpool_reference(ids32, table,
+                                                             mean), [()], 20),
+            "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
+                ids64, table, mode=mode), [()], 50)}
+
+
+def phase_seqpool_kernels(dev, seed):
+    """E1: the seqpool kernel through ``embedding_seqpool`` against its
+    plain version, sum and mean, float32 and bf16, at E_SHAPES with ids
+    out of range on both sides; one launch a call. Then, in float32 with
+    the mean, the kernel, plain and ``F.embedding_bag`` times and the
+    bound at each shape, so that a routing rule for this card can be
+    chosen from its own numbers."""
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    results, worst, shapes = [], 0.0, []
+    for name, b, s, v, d in E_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        table32 = torch.randn(v, d, device=dev, generator=gen)
+        ids = torch.randint(-3, v + 3, (b, s), device=dev, generator=gen,
+                            dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            table = table32.to(dtype)
+            for mean in (False, True):
+                before = ep.seqpool.launches
+                got = ep.embedding_seqpool(ids, table, mean)
+                torch.cuda.synchronize()
+                launched = ep.seqpool.launches - before
+                ref = ep.seqpool_reference(ids, table, mean)
+                diff = (got.float() - ref.float()).abs().max().item()
+                rel = diff / max(ref.float().abs().max().item(), 1e-30)
+                ok = rel <= E_TOL[dtype] and launched == 1 and \
+                    got.dtype == ref.dtype and got.shape == ref.shape
+                rec = {"case": name, "dtype": str(dtype).split(".")[-1],
+                       "mean": mean, "shape": [b, s, v, d],
+                       "max_abs_err": diff, "rel_err": rel, "ok": ok}
+                results.append(rec)
+                log(f"[E1] seqpool {name:<12} {rec['dtype']:>8} "
+                    f"{'mean' if mean else 'sum '} [{b},{s}] into [{v},{d}]"
+                    f": max |kernel - plain| {diff:.3e}, relative {rel:.3e} "
+                    f"(gate {E_TOL[dtype]:g}); launches {launched}")
+                if not ok:
+                    fail("E1", f"{rec}")
+                if name == "imdb" and dtype == torch.float32:
+                    worst = max(worst, diff)
+        clamped = ids.clamp(0, v - 1)
+        times = seqpool_yardsticks(clamped, table32)
+        nbytes, ops = seqpool_work(clamped, d, 4)
+        bnd = bound_ms(nbytes, ops, torch.float32)
+        shapes.append(dict(times, case=name, shape=[b, s, v, d],
+                           dtype="float32", bound_ms=bnd[0],
+                           bound_by=bnd[1], bytes=nbytes))
+        log(f"[E1] seqpool {name} float32 mean: kernel "
+            f"{times['call_ms'] * 1e3:.2f} us, plain "
+            f"{times['plain_ms'] * 1e3:.2f} us, F.embedding_bag "
+            f"{times['library_ms'] * 1e3:.2f} us (CUDA events); bound "
+            f"{bnd[0] * 1e3:.2f} us ({bnd[1]}, {nbytes} bytes)")
+        del table32, table, ids, clamped
+        torch.cuda.empty_cache()
+    return results, worst, shapes
+
+
+def e_run(init, ids, labels, fused, plain, perm):
+    """E_STEPS Adam steps of the classifier from ``init`` through the
+    seqpool kernel or (``plain``) its plain version, the update fused or
+    not, the batch in its order or permuted (``perm``: the same loss, its
+    sums in another order). Returns the losses, the launches a step and
+    the parameters after the last step."""
+    from paddle_tpu_torch import imdb_bench
+    from paddle_tpu_torch import optimizer as popt
+    params = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+    opt = popt.Adam(learning_rate=imdb_bench.LR)
+    state = opt.init(params)
+    if perm is not None:
+        ids, labels = ids[perm], labels[perm]
+    losses, counts = [], []
+    with plain_seqpool() if plain else contextlib.nullcontext():
+        for _ in range(E_STEPS):
+            zero_e_counts()
+            loss = imdb_bench.train_step(params, opt, state, ids, labels,
+                                         fused)
+            torch.cuda.synchronize()
+            counts.append(e_counts())
+            losses.append(loss.item())
+    return {"losses": losses, "counts": counts,
+            "params": {k: p.detach().clone() for k, p in params.items()}}
+
+
+def tree_norm(tree):
+    return math.sqrt(sum(t.double().square().sum().item()
+                         for t in tree.values()))
+
+
+def phase_imdb_train(dev, seed):
+    """E2: the ``imdb_real`` classifier step (``paddle_tpu_torch/
+    imdb_bench.py``) at full size, float32. Three Adam steps through the
+    kernels (fused and unfused update) and through the plain versions, and
+    the kernel (fused) and plain runs again with the batch permuted. Gates:
+    every loss within 1e-5 relative of the plain route's; the parameters
+    after step 3 (whole tree) within E_FLOOR_FACTOR times the rounding
+    floor, the distance the permutation moves the kernel and the plain
+    runs; table rows that no id names unmoved in every run; launches a
+    step ``seqpool: 1``, ``fused_update: 1`` when fused. Then the main
+    path: E_TIMED timed steps unfused (the bench's default) and E_TIMED
+    fused, counted (samples/s = their samples over their summed wall
+    time), and one profiled unfused step (device busy time, idle share
+    over its own wall time, the seqpool kernel's device time). Beside it
+    the kernel's bound on this batch, its plain version's and
+    ``F.embedding_bag``'s time."""
+    from paddle_tpu_torch import imdb_bench
+    params, _, _, ids, labels = imdb_bench.build(
+        *imdb_bench.SIZES["cuda"], dev, seed)
+    init = {k: p.detach().clone() for k, p in params.items()}
+    b = ids.shape[0]
+    perm = torch.randperm(b, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(seed))
+    routes = {"kernel_fused": (True, False, None),
+              "kernel": (False, False, None),
+              "plain": (False, True, None),
+              "kernel_fused_perm": (True, False, perm),
+              "plain_perm": (False, True, perm)}
+    runs = {}
+    for name, (fused, plain, p) in routes.items():
+        runs[name] = e_run(init, ids, labels, fused, plain, p)
+        log(f"[E2] {name:<17} losses "
+            f"{', '.join(f'{v:.7f}' for v in runs[name]['losses'])}; "
+            f"launches a step {runs[name]['counts'][0]}")
+        want = {"seqpool": 0 if plain else 1, "fused_update": int(fused)}
+        if any(c != want for c in runs[name]["counts"]):
+            fail("E2", f"{name}: launches {runs[name]['counts']}, expected "
+                       f"{want} a step")
+        if not all(math.isfinite(v) for v in runs[name]["losses"]):
+            fail("E2", f"{name}: non-finite loss {runs[name]['losses']}")
+    ref = runs["plain"]
+    keys = list(init)
+
+    def dist(a, c):
+        return tree_norm({k: a["params"][k] - c["params"][k] for k in keys})
+
+    floor = math.hypot(dist(runs["kernel_fused"], runs["kernel_fused_perm"]),
+                       dist(ref, runs["plain_perm"]))
+    untouched = torch.ones(init["table"].shape[0], dtype=torch.bool,
+                           device=dev)
+    untouched[ids.clamp(0, init["table"].shape[0] - 1).long().view(-1)] = \
+        False
+    rec = {"losses": {n: r["losses"] for n, r in runs.items()},
+           "launches_per_step": {n: r["counts"][0] for n, r in runs.items()},
+           "floor": floor, "untouched_rows": int(untouched.sum())}
+    moved = {n: int((r["params"]["table"][untouched]
+                     != init["table"][untouched]).any(1).sum())
+             for n, r in runs.items()}
+    rec["untouched_rows_moved"] = moved
+    for name in ("kernel_fused", "kernel"):
+        loss_rel = max(abs(a - c) / abs(c) for a, c in
+                       zip(runs[name]["losses"], ref["losses"]))
+        d = dist(runs[name], ref)
+        rec[name] = {"loss_rel": loss_rel, "params_dist": d,
+                     "floor_ratio": d / floor if floor else None}
+        log(f"[E2] {name} vs plain: losses within {loss_rel:.3e} relative "
+            f"(gate 1e-5); parameters after step {E_STEPS} "
+            f"|kernel - plain| {d:.3e} (|plain| {tree_norm(ref['params']):.3e}"
+            f"), the permutation's floor {floor:.3e}, ratio "
+            f"{d / floor if floor else float('inf'):.3f} (gate "
+            f"{E_FLOOR_FACTOR:g})")
+        if loss_rel > 1e-5:
+            fail("E2", f"{name}: losses part by {loss_rel:.3e} relative")
+        if d > E_FLOOR_FACTOR * floor:
+            fail("E2", f"{name}: parameters {d:.3e} apart, floor {floor:.3e}")
+    log(f"[E2] table rows no id names: {rec['untouched_rows']}; moved in "
+        f"any run: {sum(moved.values())} (must be 0)")
+    if rec["untouched_rows"] == 0 or any(moved.values()):
+        fail("E2", f"untouched table rows {rec['untouched_rows']}, moved "
+                   f"{moved}")
+    del runs
+
+    # the main path: the bench's step at full size, counted and timed
+    for fused in (False, True):
+        params, opt, state, ids, labels = imdb_bench.build(
+            *imdb_bench.SIZES["cuda"], dev, seed)
+
+        def step():
+            return imdb_bench.train_step(params, opt, state, ids, labels,
+                                         fused)
+
+        step()
+        torch.cuda.synchronize()
+        zero_e_counts()
+        wall, losses = [], []
+        for _ in range(E_TIMED):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        counts = e_counts()
+        want = {"seqpool": E_TIMED, "fused_update": E_TIMED * fused}
+        if counts != want or not all(math.isfinite(v) for v in losses):
+            fail("E2", f"main path (fused={fused}): launches {counts}, "
+                       f"expected {want}; losses {losses}")
+        label = "fused" if fused else "unfused"
+        rec[label] = {"launches": counts, "wall_ms": wall,
+                      "samples_per_s": b * E_TIMED / sum(wall) * 1e3,
+                      "losses": losses}
+        log(f"[E2] main path, {label} update: {E_TIMED} steps, launches "
+            f"{counts}, {sum(wall) / E_TIMED:.3f} ms a step, "
+            f"{rec[label]['samples_per_s']:.0f} samples/s over them; loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+        if not fused:
+            busy, kernels, prof_ms = profiled(step, "the IMDB step")
+            sp = [r for r in kernels if "seqpool_kernel" in r[0]]
+            if not sp:
+                fail("E2", "the profile of the step shows no seqpool_kernel")
+            rec["profile"] = {
+                "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
+                "idle_share": 1.0 - busy / prof_ms,
+                "seqpool_device_ms": sum(r[2] for r in sp),
+                "seqpool_count": sum(r[1] for r in sp),
+                "top_kernels": [{"name": n[:120], "count": c, "device_ms": t}
+                                for n, c, t in kernels[:10]]}
+            log(f"[E2] profiled unfused step: device busy {busy:.3f} of "
+                f"{prof_ms:.3f} ms (idle share "
+                f"{rec['profile']['idle_share']:.3f}); seqpool "
+                f"{rec['profile']['seqpool_device_ms'] * 1e3:.2f} us")
+            for n, c, t in kernels[:10]:
+                log(f"[E2]   {t * 1e3:9.2f} us {c:4d}x  {n[:100]}")
+            table = params["table"].detach()
+            clamped = ids.clamp(0, table.shape[0] - 1)
+            nbytes, ops = seqpool_work(clamped, table.shape[1], 4)
+            bnd = bound_ms(nbytes, ops, torch.float32)
+            numbers = dict(seqpool_yardsticks(clamped, table),
+                           ms=rec["profile"]["seqpool_device_ms"]
+                           / rec["profile"]["seqpool_count"],
+                           bound_ms=bnd[0], bound_by=bnd[1], bytes=nbytes,
+                           launches_per_step=1)
+            rec["seqpool_numbers"] = numbers
+            log(f"[E2] seqpool on the batch: kernel {numbers['ms'] * 1e3:.2f}"
+                f" us (device), {numbers['call_ms'] * 1e3:.2f} us a call; "
+                f"plain {numbers['plain_ms'] * 1e3:.2f} us, F.embedding_bag "
+                f"{numbers['library_ms'] * 1e3:.2f} us (CUDA events); bound "
+                f"{bnd[0] * 1e3:.3f} us ({bnd[1]}, {nbytes} bytes)")
+        del params, opt, state
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- main -------------------------------------------------------------------
@@ -1924,10 +2440,11 @@ def main(argv=None):
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
                          "the port on the card and has no CPU fallback")
     import paddle_tpu_torch  # noqa: F401  (sets float32 matmuls to strict)
+    from paddle_tpu_torch.core.device import card_name_and_power
     from paddle_tpu_torch.kernels.attention import flash_attention
 
     dev = torch.device("cuda")
-    card = gpu_name_and_power()
+    card = card_name_and_power()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {card}")
@@ -1936,6 +2453,10 @@ def main(argv=None):
     report["build"] = phase_build()
     report["resnet_kernels"], r_worst = phase_resnet_kernels(dev, args.seed)
     report["resnet_train"] = phase_resnet_train(dev, args.seed)
+    report["pool_kernels"], pool_numbers = phase_pool(dev, args.seed)
+    report["seqpool_kernels"], seqpool_worst, report["seqpool_shapes"] = \
+        phase_seqpool_kernels(dev, args.seed)
+    report["imdb_train"] = phase_imdb_train(dev, args.seed)
     report["resnet_bench"] = phase_resnet_bench(dev, args.seed)
     r_main = report["resnet_bench"]["grad+out+blk+stem+bnres"]
     report["resnet_numbers"] = phase_resnet_numbers(r_main, dev, args.seed)
@@ -1966,9 +2487,21 @@ def main(argv=None):
 
     launches = dict(report["train"]["launches"])
     launches["flash_fwd"] += serving_launches
-    # the conv kernels: the counted step of the bench (lowp default)
+    # the conv and pool kernels: the counted step of the bench (lowp
+    # default); seqpool: the classifier's counted unfused run
     launches.update(r_main["launches"])
+    launches["seqpool"] = report["imdb_train"]["unfused"]["launches"][
+        "seqpool"]
     worst.update(r_worst)
+    worst.update(
+        seqpool=seqpool_worst,
+        pool_fwd=max(r["out_max_abs_err"] for r in report["pool_kernels"]),
+        pool_bwd=max(r["max_abs_err"] for r in report["pool_kernels"]))
+    for key in ("pool_fwd", "pool_bwd"):
+        in_step = r_main["kernels_in_step"][key]
+        if in_step["count"] != R_PER_STEP[key]:
+            fail("R4", f"the profiled step shows {in_step['count']} {key}")
+        pool_numbers[key]["ms"] = in_step["device_ms"] / in_step["count"]
     # flash_fwd's times are the serving decoder shape's (12 of every 12
     # launches per decode step); its other shapes, the training one
     # included, are in "shapes"
@@ -1994,6 +2527,11 @@ def main(argv=None):
                      shape=list(TRAIN_FLASH[1:6]))]
         elif name in RESNET_KERNELS:
             rec.update({k: report["resnet_numbers"][name][k] for k in keys})
+        elif name in pool_numbers:
+            rec.update({k: pool_numbers[name][k] for k in keys})
+        elif name == "seqpool":
+            rec.update({k: report["imdb_train"]["seqpool_numbers"][k]
+                        for k in keys})
         else:
             rec.update(train_numbers[name])
         kernels_line.append(rec)

@@ -12,6 +12,11 @@ Slice 3 trains ResNet-50 as ``bench.py`` does (``paddle_tpu_torch/bench.py``)
 with every conv outside the stem in hand-written kernels: the 1x1 convs'
 blocked GEMM (``csrc/brgemm.cu``) and the 3x3 convs' implicit GEMM
 (``csrc/conv_kxk.cu``), forward, dx and dw.
+Slice 5 adds the stem's fused max pool to that step
+(``PADDLE_TPU_POOL_FUSED``: ``csrc/pool_fused.cu``, forward and backward)
+and trains the IMDB sentiment classifier (``paddle_tpu_torch/imdb_bench.py``)
+with the embedding lookup and sequence pool in one kernel
+(``csrc/seqpool.cu``).
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
 """

@@ -15,6 +15,9 @@ Knobs, read from the environment as the JAX benchmark reads them:
   turns them on when the variable is set at all).
 - ``PADDLE_TPU_FUSED_OPT``: set and not "0" routes the update through the
   fused optimizer kernel.
+- ``PADDLE_TPU_POOL_FUSED``: set and not "0" routes the stem's max pool
+  through the fused max-pool kernels (``pool_fused.POOL_FUSED``); off by
+  default, as in the JAX benchmark.
 
 Prints one JSON line with ``bench.py``'s keys (``metric``, ``value``,
 ``unit``, ``vs_baseline``, ``precision``) plus ``mfu`` and the card. MFU
@@ -55,6 +58,10 @@ def conv_fused_from_env():
 
 def fused_opt_from_env():
     return os.environ.get("PADDLE_TPU_FUSED_OPT", "0") not in ("", "0")
+
+
+def pool_fused_from_env():
+    return os.environ.get("PADDLE_TPU_POOL_FUSED", "0") not in ("", "0")
 
 
 def build(batch, size, lowp, device, seed=0, dtype=torch.bfloat16):
@@ -105,6 +112,7 @@ def peak_for(name):
 def run(device="cuda", batch=None, size=None, steps=None, seed=0):
     """Build, warm up, time ``steps`` steps; returns the result dict."""
     from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.kernels import pool_fused
     from paddle_tpu_torch.ops import nn_ops
     dev = resolve_device(device)
     on_gpu = dev.type == "cuda"
@@ -113,6 +121,7 @@ def run(device="cuda", batch=None, size=None, steps=None, seed=0):
     steps = steps or (20 if on_gpu else 3)
     lowp = lowp_from_env()
     nn_ops.set_conv_fused(conv_fused_from_env())
+    pool_fused.set_pool_fused(pool_fused_from_env())
     fused = fused_opt_from_env()
     model, params, opt, state, x, labels = build(batch, size, lowp, dev,
                                                  seed)
@@ -140,7 +149,8 @@ def run(device="cuda", batch=None, size=None, steps=None, seed=0):
         "vs_baseline": round(imgs_per_sec / REFERENCE_IMGS_PER_SEC, 3),
         "precision": "bf16+fp8_storage" if lowp else "bf16",
         "batch": batch, "image_size": size, "steps": steps,
-        "conv_fused": nn_ops.CONV_FUSED, "fused_opt": fused,
+        "conv_fused": nn_ops.CONV_FUSED, "pool_fused": pool_fused.POOL_FUSED,
+        "fused_opt": fused,
         "final_loss": final_loss,
     }
     if on_gpu:

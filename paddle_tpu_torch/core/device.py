@@ -8,6 +8,8 @@ so a run that was meant for the card can never quietly measure the host.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -32,3 +34,14 @@ def strict_float32():
     float32 results compare with the JAX reference at float32 tolerance."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def card_name_and_power() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a
+    card set below its maximum power runs slower under load)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi gave no output"

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/nn_ops.py``): ``layer_norm`` (differentiated by plain
 autograd), ``embedding`` and ``dropout``; for ResNet, ``conv2d`` with its
 fused-kernel routing knob (``CONV_FUSED``), ``conv2d_stem_s2d``,
-``pool2d`` and ``batch_norm`` (with an fp8-residual mode that a
+``pool2d`` (its max pools routed to ``kernels/pool_fused`` by
+``pool_fused.POOL_FUSED``) and ``batch_norm`` (with an fp8-residual mode that a
 ``BatchNorm`` module pins; the JAX module's process-wide
 ``BN_LOWP_RESIDUAL`` default is not ported).
 
@@ -18,6 +19,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.kernels import pool_fused
 from paddle_tpu_torch.ops.activation import get_activation
 
 
@@ -166,21 +168,33 @@ def conv2d_stem_s2d(x, weight):
 
 def pool2d(x, pool_size=2, pool_type="max", pool_stride=None, pool_padding=0,
            global_pooling=False, ceil_mode=False, exclusive=True,
-           data_format="NCHW"):
-    """pool_op parity (``paddle_tpu/ops/nn_ops.py:256``), the XLA route:
-    max pools pad with -inf, avg pools sum in float32 and divide by the
-    window (or, exclusive with padding, by the count of real elements);
-    ``ceil_mode`` pads the high end by stride - 1 as the JAX op does. The
-    fused max-pool kernel (``POOL_FUSED``) is not ported yet."""
+           data_format="NCHW", use_pallas=None):
+    """pool_op parity (``paddle_tpu/ops/nn_ops.py:256``).
+
+    ``use_pallas`` routes a max pool through the fused kernels
+    (``kernels/pool_fused.max_pool2d_fused``) when the JAX op's conditions
+    hold: NHWC, no ``ceil_mode``, a 4-D float input and padding smaller
+    than the window. True/False per call, None follows
+    ``pool_fused.POOL_FUSED``. Every other call takes the XLA route's
+    counterpart: max pools pad with -inf, avg pools sum in float32 and
+    divide by the window (or, exclusive with padding, by the count of real
+    elements); ``ceil_mode`` pads the high end by stride - 1 as the JAX op
+    does."""
+    ks = _pair(pool_size)
+    st = _pair(pool_stride if pool_stride is not None else pool_size)
+    pd = _pair(pool_padding)
+    use_p = pool_fused.POOL_FUSED if use_pallas is None else \
+        bool(use_pallas)
+    if use_p and not global_pooling and pool_type == "max" \
+            and data_format == "NHWC" and not ceil_mode and x.dim() == 4 \
+            and x.is_floating_point() and pd[0] < ks[0] and pd[1] < ks[1]:
+        return pool_fused.max_pool2d_fused(x, ks, st, pd)
     nchw = x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
     if global_pooling:
         red = (2, 3)
         out = (nchw.amax(red, keepdim=True) if pool_type == "max" else
                nchw.float().mean(red, keepdim=True).to(x.dtype))
     else:
-        ks = _pair(pool_size)
-        st = _pair(pool_stride if pool_stride is not None else pool_size)
-        pd = _pair(pool_padding)
         extra = [s - 1 if ceil_mode else 0 for s in st]
         pads = (pd[1], pd[1] + extra[1], pd[0], pd[0] + extra[0])
         if pool_type == "max":

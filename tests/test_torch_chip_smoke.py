@@ -100,7 +100,8 @@ def test_training_phase_shapes_are_transformer_long():
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
     assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "flash_bwd",
-                                  "flash_fwd", "fused_update"]
+                                  "flash_fwd", "fused_update", "pool_fused",
+                                  "seqpool"]
 
 
 def test_permuted_keys_is_the_same_attention():
@@ -147,3 +148,36 @@ def test_resnet50_conv_shapes_count_the_steps_launches():
 ])
 def test_conv_work_counts_real_taps(shape, batch, nbytes, flops):
     assert chip_smoke.conv_work(shape, batch, 2) == (nbytes, flops)
+
+
+def test_resnet_step_counts_one_launch_of_each_pool_kernel():
+    per_step, off = chip_smoke.R_PER_STEP, chip_smoke.R_POOL_OFF
+    assert (per_step["pool_fwd"], per_step["pool_bwd"]) == (1, 1)
+    assert (off["pool_fwd"], off["pool_bwd"]) == (0, 0)
+    assert {k: v for k, v in off.items() if not k.startswith("pool")} == \
+        {k: v for k, v in per_step.items() if not k.startswith("pool")}
+    assert (chip_smoke.R_EVAL["pool_fwd"], chip_smoke.R_EVAL["pool_bwd"]) \
+        == (1, 0)
+    assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool"}
+    assert len(chip_smoke.KERNELS) == 11
+
+
+@pytest.mark.parametrize("geo,esize,nbytes,ops", [
+    # the stem at batch 256 in bf16: x, out and int32 idx (about 719 MB)
+    ((256, 112, 112, 64, 56, 56, 3, 3, 2, 2, 1, 1), 2,
+     2 * (256 * 112 * 112 * 64 + 256 * 56 * 56 * 64) + 4 * 256 * 56 * 56 * 64,
+     9 * 256 * 56 * 56 * 64),
+    # 2x2/s2 on a 4x6 float32 plane, 3 channels: 2x3 outputs
+    ((1, 4, 6, 3, 2, 3, 2, 2, 2, 2, 0, 0), 4,
+     4 * (72 + 18) + 4 * 18, 4 * 18),
+])
+def test_pool_work_counts_x_out_and_idx_once(geo, esize, nbytes, ops):
+    assert chip_smoke.pool_work(geo, esize) == (nbytes, ops)
+    assert abs(nbytes - 719e6) < 1e6 or geo[0] != 256
+
+
+def test_seqpool_work_counts_the_distinct_rows():
+    # rows 0, 3 and 7 named (0 three times): 3 rows, 2 outputs of 4 columns
+    ids = torch.tensor([[0, 3, 0], [7, 0, 3]])
+    assert chip_smoke.seqpool_work(ids, 4, 4) == (
+        4 * 4 * (3 + 2) + 4 * 6, 6 * 4)

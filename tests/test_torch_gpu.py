@@ -1,6 +1,6 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
-forward and backward and the fused optimizer update against their plain
-versions.
+forward and backward, the fused optimizer update, the conv kernels, the
+fused max pool and the embedding seqpool against their plain versions.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a GPU machine without JAX:
@@ -384,3 +384,109 @@ def test_float8_casts_on_the_card_equal_the_cpus(cuda):
         a, b = fn(x), fn(x.to(cuda)).cpu()
         same = (a == b) | (torch.isnan(a) & torch.isnan(b))
         assert bool(same.all()), fn.__name__
+
+
+# -- the fused max pool and the embedding seqpool ------------------------------
+
+POOL_CASES = [((2, 112, 112, 64), 3, 2, 1), ((3, 37, 29, 24), 3, 2, 1),
+              ((2, 8, 10, 6), 2, 2, 0), ((2, 9, 9, 5), 3, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", POOL_CASES, ids=str)
+def test_pool_kernels_match_plain_version(cuda, case, dtype):
+    """Windows of ties (post-relu values on a few levels) and NaN entries:
+    out and idx equal, dx bit for bit; one launch each."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    shape, k, s, p = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.relu(torch.round(torch.randn(shape, device=cuda,
+                                           generator=gen) * 2) / 2)
+    x.view(-1)[::17] = float("nan")
+    x = x.to(dtype)
+    geo = pf.geometry(shape, k, s, p)
+    before = (pf.pool_fwd.launches, pf.pool_bwd.launches)
+    out, idx = pf.pool_fwd_cuda(x, geo)
+    g = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
+    dx = pf.pool_bwd_cuda(g, idx, geo, dtype)
+    torch.cuda.synchronize()
+    assert (pf.pool_fwd.launches, pf.pool_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_out, ref_idx = pf.pool_fwd_reference(x, geo)
+    ref_dx = pf.pool_bwd_reference(g, ref_idx, geo, dtype)
+    assert torch.equal(out, ref_out) and torch.equal(idx, ref_idx)
+    assert torch.equal(dx, ref_dx)
+
+
+def test_pool2d_knob_routes_the_stem_pool_to_the_kernels(cuda):
+    """With ``POOL_FUSED`` on, the stem's pool2d launches the forward and,
+    in the backward, the backward kernel; both equal the CPU's route."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator().manual_seed(3)
+    x = torch.relu(torch.randn(2, 30, 31, 8, generator=gen))
+    cot = torch.randn(2, 15, 16, 8, generator=gen)
+    outs = []
+    pf.set_pool_fused(True)
+    try:
+        for dev in ("cpu", cuda):
+            leaf = x.to(dev).requires_grad_()
+            before = (pf.pool_fwd.launches, pf.pool_bwd.launches)
+            out = nn_ops.pool2d(leaf, 3, "max", 2, 1, data_format="NHWC")
+            (g,) = torch.autograd.grad(out, leaf, cot.to(dev))
+            launched = (pf.pool_fwd.launches - before[0],
+                        pf.pool_bwd.launches - before[1])
+            assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+            outs.append((out.detach().cpu(), g.cpu()))
+    finally:
+        pf.set_pool_fused(False)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("mean", [False, True], ids=["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(256, 256, 5149, 128), (5, 7, 30, 13)],
+                         ids=["imdb", "ragged_d13"])
+def test_seqpool_kernel_matches_plain_version(cuda, shape, dtype, mean):
+    """ids out of range on both ends; float32 within 1e-5 of the largest
+    output (sums in another order), bf16 within 2e-2 (one more rounding);
+    one launch a call."""
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    b, s, v, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn(v, d, device=cuda, generator=gen).to(dtype)
+    ids = torch.randint(-3, v + 3, (b, s), device=cuda, generator=gen)
+    before = ep.seqpool.launches
+    got = ep.embedding_seqpool(ids, table, mean)
+    torch.cuda.synchronize()
+    assert ep.seqpool.launches == before + 1
+    ref = ep.seqpool_reference(ids, table, mean)
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    err = ((got.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert err <= (1e-5 if dtype == torch.float32 else 2e-2), err
+
+
+def test_pool_and_seqpool_wrappers_raise_and_never_fall_back(cuda):
+    from paddle_tpu_torch.kernels import embedding_pool as ep
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    x = torch.randn(1, 6, 6, 8, device=cuda)
+    geo = pf.geometry(x.shape, 3, 2, 1)
+    with pytest.raises(TypeError):            # float16: no kernel for it
+        pf.pool_fwd_cuda(x.half(), geo)
+    with pytest.raises(ValueError):           # not contiguous
+        pf.pool_fwd_cuda(x.transpose(1, 2), geo)
+    out, idx = pf.pool_fwd_cuda(x, geo)
+    with pytest.raises(TypeError):            # g not in x's dtype
+        pf.pool_bwd_cuda(out.bfloat16(), idx, geo, torch.float32)
+    with pytest.raises(ValueError):           # padding as large as the window
+        pf.max_pool2d_fused(x, 2, 2, 2)
+    table = torch.randn(10, 8, device=cuda)
+    ids = torch.zeros(2, 3, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):            # the kernel takes int32 ids
+        ep.seqpool_cuda(ids, table)
+    with pytest.raises(TypeError):
+        ep.seqpool_cuda(ids.int(), table.half())

@@ -40,7 +40,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     for m in ("kernels.attention", "kernels.fused_update", "optimizer",
               "optimizer.clip", "optimizer.lr_scheduler", "ops.loss",
               "kernels.tiles", "kernels.conv_fused", "kernels.epilogues",
-              "amp", "initializer", "models.resnet", "bench"):
+              "amp", "initializer", "models.resnet", "bench",
+              "kernels.pool_fused", "kernels.embedding_pool",
+              "data.datasets", "imdb_bench"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -62,7 +64,7 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     names = {p.name for p in files}
     assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh",
             "fused_update.cu", "brgemm.cu", "conv_kxk.cu",
-            "igemm.cuh"} <= names
+            "igemm.cuh", "pool_fused.cu", "seqpool.cu"} <= names
     offenders = []
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
