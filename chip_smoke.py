@@ -52,6 +52,42 @@ E2. train    three float32 Adam steps at full size through the kernels
              (samples/s), and one profiled step (idle share, the kernel's
              device time) beside its bound and yardsticks;
 
+Then the row LayerNorm (``csrc/layer_norm.cu``, forward only, behind
+``nn_ops.layer_norm(use_pallas=True)`` on ``[N, D]`` and the
+``LayerNorm(use_pallas=True)`` layer) and BERT-base pretraining
+(``paddle_tpu_torch/bert_bench.py``). They run after E2: in a run that
+put them first, E2's profiler session, the next one, recorded no device
+activity on the H100 machine:
+
+L1. kernels  the row LayerNorm through the op against its plain version at
+             kernel_bench.py:43-60's bf16 [32768, 1024] (scale ones, bias
+             zeros) and its float32 twin, bf16 [4096, 768] with eps 1e-12
+             (affine, and scale and shift off) and odd shapes in float32,
+             bf16 and float16: float32 within 1e-5 of max |y|, bf16 and
+             float16 within one ulp (beyond the float32 gate); one launch
+             a call; the layer launches it once on a 2-D input, never on a
+             3-D one, and its backward raises;
+L2. numbers  the main path (the kernel_bench twin: the layer on bf16
+             [32768, 1024], 50 counted calls), then the kernel's device
+             time, its byte bound, its plain version's and
+             ``F.layer_norm``'s time at bf16 [32768, 1024], float32
+             [32768, 1024] and bf16 [4096, 768];
+B1. train    BERT-base float32 at full width and depth, batch 8 x 128,
+             random ids with pads, MLM labels and weights, NSP labels: 3
+             unfused AdamW steps with ``use_pallas=True`` through the flash
+             kernels and through their plain versions, and with
+             ``use_pallas=False`` (dense), each again with the attention's
+             keys reordered (the rounding floor); losses within 1e-4
+             relative, the first gradients leaf by leaf and the parameters
+             after step 3 within twice the floor; launches counted a step;
+B2. bench    the bench step at batch 32 x 128 bf16 as the bench defines it
+             (``use_pallas=False``: no kernel of the port) and with
+             ``use_pallas=True`` (12 flash forward, dQ and dK/dV a step, no
+             row LayerNorm, no fused update): 2 warm-up and 10 timed steps
+             each, tokens/s and MFU, the forward and backward and the
+             update timed apart, one profiled step each (idle share, top
+             kernels).
+
 Back on the ResNet-50 path:
 
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
@@ -212,6 +248,11 @@ KERNELS = {
         "source": "paddle_tpu_torch/csrc/seqpool.cu",
         "replaces": "paddle_tpu/kernels/embedding_pool.py:101",
     },
+    "layer_norm": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "paddle_tpu/kernels/tiles.py:468",
+    },
 }
 # csrc/<name>.cu of every kernel above, one nvcc each
 SOURCES = sorted({os.path.basename(m["source"])[:-3]
@@ -224,7 +265,11 @@ PATH_SHAPES = [
     ("decoder_cross", 64, 8, 1, 64, 64, False, "padding"),
     ("decoder_self", 64, 8, 1, 64, 64, False, "prefix"),
 ]
+# BERT-base's attention on B2's use_pallas path: batch 32 x 128, 12 heads of
+# 64, BERT's kv mask (input_ids != 0) with padded rows
+BERT_FLASH = ("bert", 32, 12, 128, 128, 64, False, "padding")
 CHECK_SHAPES = PATH_SHAPES + [
+    BERT_FLASH,
     ("causal", 64, 8, 64, 64, 64, True, None),
     ("causal_ragged", 3, 2, 40, 40, 16, True, None),
     ("ragged_d100", 3, 2, 5, 70, 100, False, "padding"),
@@ -342,7 +387,8 @@ def phase_kernels(dev, seed):
                 f"(tol {TOLERANCE[dtype]:g}) {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail(2, f"flash_fwd {rec}")
-            if dtype == torch.bfloat16 and shape in PATH_SHAPES:
+            if dtype == torch.bfloat16 and (shape in PATH_SHAPES or
+                                            shape is BERT_FLASH):
                 worst["flash_fwd"] = max(worst.get("flash_fwd", 0.0),
                                          rec["max_abs_err"])
     return results, worst
@@ -715,8 +761,12 @@ LONG_CFG = dict(src_vocab_size=8192, trg_vocab_size=8192, max_length=4096,
 LONG_BATCH, LONG_LEN, LR, STEPS = 4, 4096, 1e-3, 3
 # the path's flash shape (encoder self- and cross-attention), every key kept
 TRAIN_FLASH = ("train", 4, 8, 4096, 4096, 64, False, "all")
+# BERT's shape with every row keeping a key, as BERT's batches do (training
+# declares an all-pad row unsupported)
+BERT_TRAIN_FLASH = BERT_FLASH[:-1] + ("ragged",)
 BWD_CHECK_SHAPES = [
     TRAIN_FLASH,
+    BERT_TRAIN_FLASH,
     ("masked_ragged", 3, 4, 200, 300, 64, False, "ragged"),
     ("causal", 2, 8, 512, 512, 64, True, None),
 ]
@@ -798,34 +848,40 @@ class plain_kernels:
 
 
 class permuted_keys:
-    """Feed the trainable flash op, whichever route it takes (kernels or
-    their plain versions), the keys, values and key mask in a fixed random
-    order; autograd puts dk and dv back. The same attention with its
-    float32 sums taken in another order. Non-causal calls only, as on the
-    training path."""
+    """Feed every attention of the model (``MultiHeadAttention``'s call of
+    ``scaled_dot_product_attention``, above the split into the flash and
+    the dense route, and so whichever route the flash op takes: kernels
+    or their plain versions) its keys, values and mask in a fixed random
+    order; autograd puts dk and dv back. The same attention, its sums over
+    the keys taken in another order, so every activation moves by rounding
+    alone. The floor of T2's and B1's gates. Non-causal calls only (a
+    causal mask passed as a tensor is permuted with the keys), as on both
+    training paths."""
 
     def __init__(self, seed):
         self.seed = seed
 
     def __enter__(self):
-        from paddle_tpu_torch.kernels import attention as A
-        self.A, self.op = A, A.flash_attn_op
+        from paddle_tpu_torch.nn import attention as NA
+        self.NA, self.fn = NA, NA.scaled_dot_product_attention
 
-        def op_p(q, k, v, kv_mask, causal, scale):
+        def fn_p(q, k, v, mask=None, scale=None, causal=False,
+                 use_flash=False):
             # one order for every call, so a remat recompute sees the
             # inputs of the forward whose outputs it reuses
             assert not causal
             gen = torch.Generator().manual_seed(self.seed)
             p = torch.randperm(k.shape[2], generator=gen).to(k.device)
-            return self.op(q, k[:, :, p].contiguous(), v[:, :, p].contiguous(),
-                           None if kv_mask is None else
-                           kv_mask[:, p].contiguous(), causal, scale)
+            return self.fn(q, k[:, :, p].contiguous(),
+                           v[:, :, p].contiguous(),
+                           None if mask is None else mask[..., p], scale,
+                           causal, use_flash)
 
-        A.flash_attn_op = op_p
+        NA.scaled_dot_product_attention = fn_p
         return self
 
     def __exit__(self, *exc):
-        self.A.flash_attn_op = self.op
+        self.NA.scaled_dot_product_attention = self.fn
 
 
 def bwd_inputs(shape, dtype, dev, seed):
@@ -895,9 +951,12 @@ def phase_train_kernels(dev, seed):
                 f"(tol {BWD_TOLERANCE[dtype]:g}) {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail("T1", f"flash_bwd {rec}")
-            if dtype == torch.bfloat16 and shape is TRAIN_FLASH:
-                worst["flash_bwd_dq"] = rec["dq"]["max_abs_err"]
-                worst["flash_bwd_dkv"] = max(rec["dk"]["max_abs_err"],
+            if dtype == torch.bfloat16 and (shape is TRAIN_FLASH or
+                                            shape is BERT_TRAIN_FLASH):
+                worst["flash_bwd_dq"] = max(worst.get("flash_bwd_dq", 0.0),
+                                            rec["dq"]["max_abs_err"])
+                worst["flash_bwd_dkv"] = max(worst.get("flash_bwd_dkv", 0.0),
+                                             rec["dk"]["max_abs_err"],
                                              rec["dv"]["max_abs_err"])
             del q, k, v, do, dq, dk, dv, want
             torch.cuda.empty_cache()
@@ -2426,6 +2485,487 @@ def phase_imdb_train(dev, seed):
     return rec
 
 
+# -- the row LayerNorm (L1, L2) and BERT-base (B1, B2) -------------------------
+
+# (case, n, d, dtype, eps, affine): kernel_bench.py:43-60's shape (bf16,
+# scale ones, bias zeros) and its float32 twin, BERT-base's width over
+# batch x length rows (eps 1e-12, random affine, and scale and shift off),
+# and odd shapes in every type: a row narrower than a warp's loads, one
+# row, rows too wide for the registers (the streaming kernel), D not a
+# multiple of the 16-byte loads
+L_SHAPES = [("kernel_bench", 32768, 1024, torch.bfloat16, 1e-5, "ones"),
+            ("kernel_bench", 32768, 1024, torch.float32, 1e-5, "ones"),
+            ("bert_rows", 4096, 768, torch.bfloat16, 1e-12, "random"),
+            ("bert_rows_bare", 4096, 768, torch.bfloat16, 1e-12, None)] + [
+    (f"odd_{n}x{d}", n, d, dt, 1e-5, "random")
+    for n, d in ((100, 96), (7, 10), (1, 1000), (64, 4096), (33, 301))
+    for dt in (torch.float32, torch.bfloat16, torch.float16)]
+# float32: max |kernel - plain| / max |plain| (sums in another order,
+# tests/test_kernels_interpret.py:22). bf16 / f16: each element within one
+# ulp of the plain value (one rounding of float32 results that agree to
+# ~1e-7), plus the float32 gate for the values near 0, whose ulp is finer
+# than the float32 results' own difference
+L_TOL = 1e-5
+L_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+L_ITERS = 50                      # kernel_bench.py:46's iterations
+# the timed shapes: (case, n, d, dtype, eps); the first is the main path's
+L_TIMED = [("kernel_bench", 32768, 1024, torch.bfloat16, 1e-5),
+           ("kernel_bench", 32768, 1024, torch.float32, 1e-5),
+           ("bert_rows", 4096, 768, torch.bfloat16, 1e-12)]
+LN_FLOPS_PER_ELEMENT = 8          # the kernel's float32 operations
+
+B1_BATCH, B_LEN, B_STEPS, B_TIMED = 8, 128, 3, 10
+B_KEYS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layer_norm",
+          "fused_update")
+B_SYMBOLS = dict(KERNEL_SYMBOLS, layer_norm="layer_norm_kernel")
+
+
+def ln_inputs(n, d, dtype, affine, dev, seed, sets=1):
+    """``sets`` x [n, d] inputs (a normal * 3 + 1) in ``dtype``, and the
+    float32 scale and bias: ones and zeros, random, or None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = [(torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+          for _ in range(sets)]
+    if affine == "ones":
+        s, b = (torch.ones(d, device=dev), torch.zeros(d, device=dev))
+    elif affine == "random":
+        s = torch.rand(d, device=dev, generator=g) + 0.5
+        b = torch.randn(d, device=dev, generator=g)
+    else:
+        s = b = None
+    return xs, s, b
+
+
+def ln_error(got, ref):
+    """(max |got - ref|, the gate's measure, passed): float32 relative to
+    max |ref|; bf16 / f16 the worst element's distance in ulps of ref
+    after the float32 allowance."""
+    diff = (got.float() - ref.float()).abs()
+    amax = ref.float().abs().max().item()
+    if got.dtype == torch.float32:
+        rel = diff.max().item() / max(amax, 1e-30)
+        return diff.max().item(), rel, rel <= L_TOL
+    mag = ref.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    exp = torch.floor(torch.log2(mag))
+    if got.dtype == torch.float16:
+        exp = exp.clamp(min=-14)              # subnormal spacing
+    ulp = torch.pow(2.0, exp - L_MANTISSA[got.dtype])
+    ulps = ((diff - L_TOL * amax).clamp(min=0) / ulp).max().item()
+    return diff.max().item(), ulps, ulps <= 1.0
+
+
+def ln_work(n, d, esize, affine):
+    """(bytes, operations) of one call: x read and y written once, the
+    float32 scale and bias read once; LN_FLOPS_PER_ELEMENT a value."""
+    return (2 * n * d * esize + (8 * d if affine else 0),
+            LN_FLOPS_PER_ELEMENT * n * d)
+
+
+def phase_layer_norm_kernels(dev, seed):
+    """L1: the row LayerNorm kernel through ``nn_ops.layer_norm(use_pallas=
+    True)`` against its plain version at every L_SHAPES case (one launch a
+    call); the layer ``LayerNorm(use_pallas=True)`` launches it once on a
+    2-D input and not at all on a 3-D one; its backward raises."""
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    from paddle_tpu_torch.nn.layers import LayerNorm
+    from paddle_tpu_torch.ops import nn_ops
+    results, worst = [], 0.0
+    for case, n, d, dtype, eps, affine in L_SHAPES:
+        (x,), s, b = ln_inputs(n, d, dtype, affine, dev, seed)
+        before = LN.fused_layer_norm.launches
+        got = nn_ops.layer_norm(x, s, b, 1, eps, use_pallas=True)
+        torch.cuda.synchronize()
+        launched = LN.fused_layer_norm.launches - before
+        ref = LN.fused_layer_norm_reference(x, s, b, eps)
+        err, measure, ok = ln_error(got, ref)
+        ok = ok and launched == 1 and got.dtype == dtype and \
+            bool(torch.isfinite(got).all())
+        rec = {"case": case, "shape": [n, d], "dtype": str(dtype)[6:],
+               "eps": eps, "affine": affine, "max_abs_err": err,
+               "gate_measure": measure, "launches": launched, "ok": ok}
+        results.append(rec)
+        log(f"[L1] layer_norm {case:<14} [{n},{d}] {rec['dtype']:>8} eps "
+            f"{eps:g} affine {affine}: max |kernel - plain| {err:.3e}, "
+            + (f"relative {measure:.3e} (gate {L_TOL:g})"
+               if dtype == torch.float32 else
+               f"{measure:.3f} ulp beyond the float32 gate (gate 1)")
+            + f"; launches {launched}")
+        if not ok:
+            fail("L1", f"layer_norm {rec}")
+        if case == "kernel_bench" and dtype == torch.bfloat16:
+            worst = err
+        del x, got, ref
+    layer = LayerNorm(768, epsilon=1e-12, use_pallas=True).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x3 = torch.randn(4, 32, 768, device=dev, generator=g).bfloat16()
+    counts = []
+    for x in (x3.reshape(-1, 768), x3):
+        before = LN.fused_layer_norm.launches
+        with torch.no_grad():
+            y = layer(x)
+        torch.cuda.synchronize()
+        counts.append(LN.fused_layer_norm.launches - before)
+        if not torch.isfinite(y).all():
+            fail("L1", "the layer gave non-finite values")
+    x2 = x3.reshape(-1, 768).float().requires_grad_()
+    try:
+        torch.autograd.grad(layer(x2).square().sum(), x2)
+        raised = False
+    except RuntimeError:
+        raised = True
+    log(f"[L1] LayerNorm(768, use_pallas=True): launches on a 2-D input "
+        f"{counts[0]} (must be 1), on a 3-D input {counts[1]} (must be 0); "
+        f"its backward raises: {raised}")
+    if counts != [1, 0] or not raised:
+        fail("L1", f"layer launches {counts}, backward raised {raised}")
+    torch.cuda.empty_cache()
+    return {"cases": results, "layer_launches": counts,
+            "backward_raises": raised}, worst
+
+
+def phase_layer_norm_numbers(dev, seed):
+    """L2: the main path, then the numbers. The main path is the twin of
+    ``benchmark/kernel_bench.py:43-60``: ``LayerNorm(1024,
+    use_pallas=True)`` (scale ones, bias zeros) applied L_ITERS times to
+    bf16 [32768, 1024] at inference, counted (counts set to 0 just before,
+    read just after) and timed with CUDA events. Then at each L_TIMED
+    shape: the kernel's device time (torch.profiler, L_ITERS launches
+    cycling through inputs of at least 64 MB, so x comes from HBM), its
+    bound, and the plain version's and ``F.layer_norm``'s time a call
+    (CUDA events on the same inputs), the latter a yardstick the port
+    never calls."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    from paddle_tpu_torch.nn.layers import LayerNorm
+    _, n, d, dtype, eps = L_TIMED[0]
+    layer = LayerNorm(d, epsilon=eps, use_pallas=True).to(dev)
+    xs, _, _ = ln_inputs(n, d, dtype, None, dev, seed, sets=2)
+    with torch.no_grad():
+        LN.fused_layer_norm.launches = 0
+        path_ms = time_ms(layer, [(x,) for x in xs], L_ITERS)
+        launches = LN.fused_layer_norm.launches
+    log(f"[L2] main path: LayerNorm({d}, use_pallas=True) on bf16 [{n},{d}] "
+        f"x {L_ITERS} (+2 warm-up): {launches} launches, {path_ms * 1e3:.2f} "
+        f"us a call (CUDA events)")
+    if launches != L_ITERS + len(xs):
+        fail("L2", f"the main path launched {launches}, expected "
+                   f"{L_ITERS + len(xs)}")
+    del xs
+    shapes = []
+    for case, n, d, dtype, eps in L_TIMED:
+        esize = torch.tensor([], dtype=dtype).element_size()
+        sets = max(2, -(-64 * 2 ** 20 // (n * d * esize)))
+        xs, s, b = ln_inputs(n, d, dtype, "random", dev, seed, sets)
+        args = [(x, s, b, eps) for x in xs]
+        busy, kernels, _ = profiled(
+            lambda: [LN.layer_norm_cuda(*args[i % sets])
+                     for i in range(L_ITERS)], f"layer_norm {case}")
+        rows = [r for r in kernels if "layer_norm_kernel" in r[0]]
+        if not rows or sum(r[1] for r in rows) != L_ITERS:
+            fail("L2", f"the profile of {case} shows {rows}")
+        nbytes, ops = ln_work(n, d, esize, True)
+        bnd = bound_ms(nbytes, ops, torch.float32)
+        rec = {"case": case, "shape": [n, d], "dtype": str(dtype)[6:],
+               "ms": sum(r[2] for r in rows) / L_ITERS,
+               "call_ms": time_ms(LN.layer_norm_cuda, args, L_ITERS),
+               "plain_ms": time_ms(LN.fused_layer_norm_reference, args, 10),
+               "library_ms": time_ms(
+                   lambda x, s, b: F.layer_norm(x, (d,), s, b, eps),
+                   [(x, s.to(dtype), b.to(dtype)) for x in xs], L_ITERS),
+               "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": nbytes}
+        shapes.append(rec)
+        log(f"[L2] layer_norm {case} [{n},{d}] {rec['dtype']}: kernel "
+            f"{rec['ms'] * 1e3:.2f} us (device), {rec['call_ms'] * 1e3:.2f} "
+            f"us a call; plain {rec['plain_ms'] * 1e3:.2f} us, F.layer_norm "
+            f"{rec['library_ms'] * 1e3:.2f} us (CUDA events); bound "
+            f"{bnd[0] * 1e3:.2f} us ({bnd[1]}, {nbytes} bytes) = "
+            f"{bnd[0] / rec['ms'] * 100:.1f}% of the kernel's time")
+        del xs, args
+    torch.cuda.empty_cache()
+    return {"launches": launches, "path_call_ms": path_ms, "shapes": shapes}
+
+
+def b_counts():
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    return dict(train_counts(), layer_norm=LN.fused_layer_norm.launches)
+
+
+def zero_b_counts():
+    from paddle_tpu_torch.kernels import layer_norm as LN
+    zero_counts()
+    LN.fused_layer_norm.launches = 0
+
+
+def b_expect(use_pallas):
+    """Launches of one BERT step: 12 flash forward, dQ and dK/dV with
+    ``use_pallas``; no row-norm launch (the LayerNorms see [B, T, H]) and
+    no fused update (the step is unfused); none without."""
+    per = 12 if use_pallas else 0
+    return {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+            "layer_norm": 0, "fused_update": 0}
+
+
+def bert_batch(batch, vocab, dev, seed):
+    """(ids, mlm_labels, mlm_weights, nsp_labels): ids in 1..vocab-1 with
+    rows padded by 0 after a random length (row 0 full, no all-pad row),
+    random MLM labels, MLM weights 1 on ~15% of the real tokens, random
+    NSP labels."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1, vocab, (batch, B_LEN))
+    lens = rs.randint(B_LEN // 4, B_LEN + 1, batch)
+    lens[0] = B_LEN
+    for i, n in enumerate(lens):
+        ids[i, n:] = 0
+    weights = (rs.rand(batch, B_LEN) < 0.15) & (ids != 0)
+    out = (ids, rs.randint(0, vocab, (batch, B_LEN)), weights,
+           rs.randint(0, 2, batch))
+    dts = (torch.int32, torch.int32, torch.float32, torch.int32)
+    return tuple(torch.from_numpy(np.asarray(a)).to(dev, dt)
+                 for a, dt in zip(out, dts))
+
+
+def b1_run(model, init, data, plain, reorder, seed):
+    """B_STEPS unfused AdamW steps of the bench's loss from ``init``,
+    through the flash kernels or (``plain``) their plain versions, the
+    keys in their order or (``reorder``) reordered. Returns the losses,
+    the launches a step, the first step's gradients and the parameters
+    after the last step."""
+    from paddle_tpu_torch import bert_bench
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.convert import param_tree
+    model.load_state_dict(init)
+    params = param_tree(model)
+    opt = popt.AdamW(bert_bench.LR, weight_decay=bert_bench.WEIGHT_DECAY)
+    state = opt.init(params)
+    loss_fn = bert_bench.loss_fn(model)
+    losses, counts, first = [], [], None
+    stack = contextlib.ExitStack()
+    if plain:
+        stack.enter_context(plain_kernels())
+    if reorder:
+        stack.enter_context(permuted_keys(seed))
+    with stack:
+        for _ in range(B_STEPS):
+            zero_b_counts()
+            loss = loss_fn(params, *data)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            opt.apply_gradients(params, dict(zip(params, grads)), state)
+            torch.cuda.synchronize()
+            counts.append(b_counts())
+            losses.append(loss.item())
+            if first is None:
+                first = {k: g.detach().clone() for k, g in zip(params, grads)}
+    return {"losses": losses, "counts": counts, "grads": first,
+            "params": {k: p.detach().clone() for k, p in params.items()}}
+
+
+def floor_gate(phase, name, runs, a, ref, get):
+    """Run ``a`` against run ``ref`` leaf by leaf (what ``get`` takes out of
+    a run), each within NOISE_FACTOR times its rounding floor: the
+    distance the two runs move when only the order of their attention's
+    keys changes (``<run>_perm``). The key projections' biases, whose
+    true gradient is 0, are left out (the caller gates them). Fails
+    ``phase``."""
+    x, r = get(runs[a]), get(runs[ref])
+    xp, rp = get(runs[a + "_perm"]), get(runs[ref + "_perm"])
+    ratios, rel = {}, {}
+    for leaf in r:
+        if leaf.endswith(KEY_BIAS):
+            continue
+        diff = (x[leaf] - r[leaf]).norm().item()
+        floor = math.hypot((x[leaf] - xp[leaf]).norm().item(),
+                           (r[leaf] - rp[leaf]).norm().item())
+        ratios[leaf] = diff / max(floor, 1e-30) if diff else 0.0
+        rel[leaf] = diff / max(r[leaf].norm().item(), 1e-30)
+    worst = max(ratios, key=ratios.get)
+    rec = {"rel_median": float(np.median(list(rel.values()))),
+           "rel_worst": max(rel.values()),
+           "floor_ratio_median": float(np.median(list(ratios.values()))),
+           "floor_ratio_worst": ratios[worst], "worst_leaf": worst}
+    log(f"[{phase}] {name}, {a} vs {ref}, leaf by leaf: rel L2 median "
+        f"{rec['rel_median']:.2e}, worst {rec['rel_worst']:.2e}; x the "
+        f"permuted runs' floor median {rec['floor_ratio_median']:.2f}, worst "
+        f"{ratios[worst]:.2f} ({worst}; gate {NOISE_FACTOR:g})")
+    if ratios[worst] > NOISE_FACTOR:
+        fail(phase, f"{name} {a} vs {ref}: {worst} {ratios[worst]:.2f}x "
+                    f"the floor")
+    return rec
+
+
+def phase_bert_train(dev, seed):
+    """B1: BERT-base in float32 at full width and depth (batch cut to
+    8 x 128 to carry the gates), random ids with pads, MLM labels and
+    weights and NSP labels. ``use_pallas=True``: B_STEPS unfused AdamW
+    steps through the flash kernels and through their plain versions, both
+    again with the attention's keys reordered (``permuted_keys``);
+    ``use_pallas=False`` (dense attention) the same two ways. Gates: each
+    step's loss within 1e-4 relative of the plain route's (flash kernels)
+    and of the flash kernels' (dense); the first gradients leaf by leaf
+    and the parameters after step 3 (whole tree) within NOISE_FACTOR times
+    the reordered runs' floor; the key
+    biases' gradients below KEY_BIAS_TOL of their weights' and their
+    parameters within ADAM_PAIR_BOUND * lr a step; launches a step as
+    ``b_expect``."""
+    from paddle_tpu_torch import bert_bench
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    cfg = {up: BertConfig.base(use_pallas=up) for up in (True, False)}
+    data = bert_batch(B1_BATCH, cfg[True].vocab_size, dev, seed)
+    models = {up: BertForPretraining(c, device=dev, seed=seed)
+              for up, c in cfg.items()}
+    init = {k: v.detach().clone()
+            for k, v in models[True].state_dict().items()}
+    runs = {}
+    for name, up, plain in (("kernel", True, False), ("plain", True, True),
+                            ("dense", False, False)):
+        for reorder in (False, True):
+            key = name + "_perm" if reorder else name
+            runs[key] = r = b1_run(models[up], init, data, plain, reorder,
+                                   seed)
+            want = b_expect(up and not plain)
+            log(f"[B1] {key:<12} losses "
+                f"{', '.join(f'{v:.7f}' for v in r['losses'])}; launches a "
+                f"step {r['counts'][0]}")
+            if any(c != want for c in r["counts"]):
+                fail("B1", f"{key}: launches {r['counts']}, expected {want}")
+            if not all(math.isfinite(v) for v in r["losses"]):
+                fail("B1", f"{key}: non-finite loss {r['losses']}")
+    del models
+    rec = {"losses": {k: r["losses"] for k, r in runs.items()},
+           "launches_per_step": runs["kernel"]["counts"][0]}
+    for a, ref in (("kernel", "plain"), ("dense", "kernel")):
+        rel = max(abs(x - y) / abs(y) for x, y in
+                  zip(runs[a]["losses"], runs[ref]["losses"]))
+        log(f"[B1] losses {a} vs {ref}: max rel diff {rel:.3e} (gate 1e-4)")
+        if rel > 1e-4:
+            fail("B1", f"losses {a} vs {ref} part by {rel:.3e}")
+        kb = {}
+        for k, g in runs[a]["grads"].items():
+            if k.endswith(KEY_BIAS):
+                w = runs[a]["grads"][k[:-len("bias")] + "weight"]
+                kb[k] = (g.norm() / w.norm()).item()
+        kb_p = max(abs(runs[a]["params"][k] - runs[ref]["params"][k]).max()
+                   .item() for k in kb)
+        log(f"[B1] key biases ({a}): |g|/|g_weight| at most "
+            f"{max(kb.values()):.2e} (gate {KEY_BIAS_TOL:g}); parameters "
+            f"vs {ref} max |diff| {kb_p:.3e} (bound "
+            f"{ADAM_PAIR_BOUND * bert_bench.LR * B_STEPS:g})")
+        if max(kb.values()) > KEY_BIAS_TOL or \
+                kb_p > ADAM_PAIR_BOUND * bert_bench.LR * B_STEPS:
+            fail("B1", f"key biases {a} vs {ref}")
+        rec[f"{a}_vs_{ref}"] = {
+            "loss_rel": rel, "key_bias_grad_ratio": max(kb.values()),
+            "key_bias_param_diff": kb_p,
+            "grads": floor_gate("B1", "first-step gradients", runs, a, ref,
+                                lambda r: r["grads"]),
+            "params": floor_gate("B1", f"parameters after step {B_STEPS} "
+                                       "(whole tree)", runs, a, ref,
+                                 lambda r: {"tree": torch.cat(
+                                     [v.reshape(-1) for k, v in
+                                      r["params"].items()
+                                      if not k.endswith(KEY_BIAS)])})}
+    del runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_bert_bench(dev, seed):
+    """B2: the bench step (``paddle_tpu_torch/bert_bench.py``: BERT-base
+    bf16, batch 32 x 128, unfused AdamW) as the bench defines it
+    (``use_pallas=False``) and with ``use_pallas=True``. Each: 2 warm-up
+    steps, then the main path's B_TIMED steps, each counted (counts set to
+    0 just before, read just after; ``b_expect``) and timed to a
+    synchronize; tokens/s is their tokens over their summed wall time, MFU
+    the estimate's FLOPs at that rate over the card's bf16 peak. Then three
+    steps split into the forward and backward and the AdamW update, each
+    timed to a synchronize, and one profiled step: device busy time, idle
+    share over its own wall time, the top kernels and, with
+    ``use_pallas``, each flash kernel's device time at BERT's shape."""
+    from paddle_tpu_torch import bert_bench
+    from paddle_tpu_torch.bench import peak_for
+    _, peak = peak_for(torch.cuda.get_device_name(dev))
+    out = {}
+    for up in (False, True):
+        label = "use_pallas" if up else "bench"
+        cfg = bert_bench.config("cuda", up)
+        batch, seqlen = bert_bench.SIZES["cuda"]
+        model, params, opt, state, data = bert_bench.build(cfg, batch,
+                                                           seqlen, dev, seed)
+
+        def step():
+            return bert_bench.train_step(model, params, opt, state, data)
+
+        for _ in range(bert_bench.WARMUP):
+            step()
+        torch.cuda.synchronize()
+        wall, losses, counts = [], [], []
+        for _ in range(B_TIMED):
+            zero_b_counts()
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            counts.append(b_counts())
+            losses.append(loss.item())
+        want = b_expect(up)
+        if any(c != want for c in counts) or \
+                not all(math.isfinite(v) for v in losses):
+            fail("B2", f"{label}: launches {counts}, expected {want} a "
+                       f"step; losses {losses}")
+        flops = bert_bench.step_flops(cfg, batch, seqlen)
+        rate = batch * seqlen * B_TIMED / sum(wall) * 1e3
+        rec = {"wall_ms": wall, "step_ms": sum(wall) / B_TIMED,
+               "tokens_per_s": rate,
+               "mfu": flops * B_TIMED / sum(wall) * 1e3 / peak,
+               "flops_per_step": flops, "losses": losses,
+               "launches_per_step": counts[0],
+               "launches": {k: sum(c[k] for c in counts) for k in B_KEYS}}
+        fwd_bwd, update = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss = bert_bench.loss_fn(model)(params, *data)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.apply_gradients(params, dict(zip(params, grads)), state)
+            torch.cuda.synchronize()
+            fwd_bwd.append((t1 - t0) * 1e3)
+            update.append((time.perf_counter() - t1) * 1e3)
+        rec.update(fwd_bwd_ms=sum(fwd_bwd) / 3, update_ms=sum(update) / 3)
+        del grads
+        busy, kernels, prof_ms = profiled(step, f"the BERT step ({label})")
+        if busy <= 0:
+            fail("B2", f"the profiled {label} step recorded no device time")
+        rec.update(device_busy_ms=busy, profiled_wall_ms=prof_ms,
+                   idle_share=1.0 - busy / prof_ms,
+                   top_kernels=[{"name": n[:120], "count": c, "device_ms": t}
+                                for n, c, t in kernels[:15]])
+        if up:
+            rec["kernels_in_step"] = {}
+            for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                rows = [r for r in kernels if B_SYMBOLS[key] in r[0]]
+                n = sum(r[1] for r in rows)
+                if n != 12:
+                    fail("B2", f"the profiled step shows {n} {key}")
+                rec["kernels_in_step"][key] = {
+                    "count": n, "device_ms": sum(r[2] for r in rows)}
+        out[label] = rec
+        log(f"[B2] BERT-base bf16 {label} (batch {batch} x {seqlen}): "
+            f"{B_TIMED} steps, {rec['step_ms']:.2f} ms a step, "
+            f"{rate:.0f} tokens/s, MFU {rec['mfu']:.4f} (estimate "
+            f"{flops:.3e} FLOPs a step over {peak / 1e12:g} TFLOP/s); "
+            f"launches a step {counts[0]}; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; forward + backward {rec['fwd_bwd_ms']:.2f} "
+            f"ms, AdamW update {rec['update_ms']:.2f} ms (3 steps split, "
+            f"each part to a synchronize); profiled step: device busy "
+            f"{busy:.2f} of {prof_ms:.2f} ms (idle share "
+            f"{rec['idle_share']:.3f})")
+        for n, c, t in kernels[:10]:
+            log(f"[B2]   {t:8.3f} ms {c:5d}x  {n[:100]}")
+        del model, params, opt, state, data
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 def main(argv=None):
@@ -2457,6 +2997,11 @@ def main(argv=None):
     report["seqpool_kernels"], seqpool_worst, report["seqpool_shapes"] = \
         phase_seqpool_kernels(dev, args.seed)
     report["imdb_train"] = phase_imdb_train(dev, args.seed)
+    report["layer_norm_kernels"], ln_worst = phase_layer_norm_kernels(
+        dev, args.seed)
+    report["layer_norm_numbers"] = phase_layer_norm_numbers(dev, args.seed)
+    report["bert_train"] = phase_bert_train(dev, args.seed)
+    report["bert_bench"] = phase_bert_bench(dev, args.seed)
     report["resnet_bench"] = phase_resnet_bench(dev, args.seed)
     r_main = report["resnet_bench"]["grad+out+blk+stem+bnres"]
     report["resnet_numbers"] = phase_resnet_numbers(r_main, dev, args.seed)
@@ -2487,6 +3032,10 @@ def main(argv=None):
 
     launches = dict(report["train"]["launches"])
     launches["flash_fwd"] += serving_launches
+    bert_launches = report["bert_bench"]["use_pallas"]["launches"]
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        launches[key] += bert_launches[key]
+    launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
     # default); seqpool: the classifier's counted unfused run
     launches.update(r_main["launches"])
@@ -2494,7 +3043,7 @@ def main(argv=None):
         "seqpool"]
     worst.update(r_worst)
     worst.update(
-        seqpool=seqpool_worst,
+        layer_norm=ln_worst, seqpool=seqpool_worst,
         pool_fwd=max(r["out_max_abs_err"] for r in report["pool_kernels"]),
         pool_bwd=max(r["max_abs_err"] for r in report["pool_kernels"]))
     for key in ("pool_fwd", "pool_bwd"):
@@ -2516,7 +3065,8 @@ def main(argv=None):
             rec.update({k: main[k] for k in keys})
             rec["launches_by_path"] = {
                 "serving": serving_launches,
-                "training": report["train"]["launches"]["flash_fwd"]}
+                "training": report["train"]["launches"]["flash_fwd"],
+                "bert": bert_launches["flash_fwd"]}
             rec["shapes"] = [
                 {k: r[k] for k in ("case", "dtype", "shape", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
@@ -2531,6 +3081,9 @@ def main(argv=None):
             rec.update({k: pool_numbers[name][k] for k in keys})
         elif name == "seqpool":
             rec.update({k: report["imdb_train"]["seqpool_numbers"][k]
+                        for k in keys})
+        elif name == "layer_norm":
+            rec.update({k: report["layer_norm_numbers"]["shapes"][0][k]
                         for k in keys})
         else:
             rec.update(train_numbers[name])

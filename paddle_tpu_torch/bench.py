@@ -6,18 +6,23 @@
 The step: ``resnet50(num_classes=1000, lowp=...)`` in training mode on
 NHWC bfloat16 input drawn from a normal (seed 0), labels 0,
 ``log_softmax`` and the mean NLL in float32, ``Momentum(0.1, 0.9)``.
-Knobs, read from the environment as the JAX benchmark reads them:
+Knobs, read from the environment by the port's own rule, which is not
+the JAX benchmark's: ``run_benchmarks.run_one``
+(``benchmark/run_benchmarks.py:940-950``) turns ``CONV_FUSED``,
+``FUSED_OPT`` and ``POOL_FUSED`` on for any non-empty value, "0" included,
+and leaves each off when unset; the root ``bench.py`` reads only
+``PADDLE_TPU_LOWP`` (``bench.py:89``), so its convs never take the fused
+kernels. Here "0" turns a knob off, and ``CONV_FUSED`` is on when unset:
 
 - ``PADDLE_TPU_LOWP``: "0" pure bf16; unset or "1" the shipped default
   "grad+out+blk+stem+bnres"; anything else a literal token string.
 - ``PADDLE_TPU_CONV_FUSED``: the fused conv kernels (``nn_ops.CONV_FUSED``).
-  On unless set to "0": they are this slice's path (the JAX benchmark
-  turns them on when the variable is set at all).
-- ``PADDLE_TPU_FUSED_OPT``: set and not "0" routes the update through the
-  fused optimizer kernel.
-- ``PADDLE_TPU_POOL_FUSED``: set and not "0" routes the stem's max pool
-  through the fused max-pool kernels (``pool_fused.POOL_FUSED``); off by
-  default, as in the JAX benchmark.
+  On unless set to "0": they are this slice's path.
+- ``PADDLE_TPU_FUSED_OPT``: set, not empty and not "0" routes the update
+  through the fused optimizer kernel.
+- ``PADDLE_TPU_POOL_FUSED``: set, not empty and not "0" routes the stem's
+  max pool through the fused max-pool kernels (``pool_fused.POOL_FUSED``);
+  off when unset.
 
 Prints one JSON line with ``bench.py``'s keys (``metric``, ``value``,
 ``unit``, ``vs_baseline``, ``precision``) plus ``mfu`` and the card. MFU

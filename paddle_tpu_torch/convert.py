@@ -5,7 +5,8 @@ The JAX tree is a nested dict of arrays (numpy, or anything
 ``np.asarray`` takes), either the whole variables dict (``{"params": ...,
 "state": ...}``) or its ``"params"`` subtree. Paths map one to one onto the
 port's parameter and buffer names: ``enc_layers_3/attn/q_proj/weight`` ->
-``enc_layers.3.attn.q_proj.weight``, ``stage0_1/conv0/bn/mean`` ->
+``enc_layers.3.attn.q_proj.weight``, ``bert/layers_0/fc1/weight`` ->
+``bert.layers.0.fc1.weight``, ``stage0_1/conv0/bn/mean`` ->
 ``stage0.1.conv0.bn.mean`` (a ResNet's running stats, from ``"state"``).
 
 Layouts: the port keeps the JAX layouts, so nothing is transposed here.
@@ -14,7 +15,9 @@ Layouts: the port keeps the JAX layouts, so nothing is transposed here.
 Tied embedding: with ``share_embedding=True`` the JAX tree holds the table
 only under ``trg_emb`` (its ``trg_emb = src_emb`` retags the shared module).
 The port shares one ``Embedding`` under both names and loads it from
-``trg_emb``.
+``trg_emb``. BERT's MLM decoder reads the word table at its own path
+(``bert/embeddings/word/weight``) in both packages, so it needs nothing
+here.
 
 ``param_tree(model)`` is the dict the port's optimizers take: every
 trainable parameter under its JAX path (``enc_layers_3/attn/q_proj/weight``)
@@ -31,8 +34,8 @@ import re
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(enc_layers|dec_layers|stage\d+)_(\d+)$")
-_LISTS = re.compile(r"^(enc_layers|dec_layers|stage\d+)$")
+_LAYER = re.compile(r"^(enc_layers|dec_layers|layers|stage\d+)_(\d+)$")
+_LISTS = re.compile(r"^(enc_layers|dec_layers|layers|stage\d+)$")
 
 
 def _flatten(tree, prefix=()):

@@ -17,9 +17,11 @@ not in the repository, and its reader is not ported.
 
 Sizes: batch 256, max_len 256, dim 128 on the card; ``--device cpu`` runs
 the JAX workload's tiny size, batch 8, max_len 32, dim 16 (the table keeps
-the dictionary's 5149 rows). ``PADDLE_TPU_FUSED_OPT`` set and not "0"
-routes the update through the fused optimizer kernel, as in
-``paddle_tpu_torch/bench.py``.
+the dictionary's 5149 rows). ``PADDLE_TPU_FUSED_OPT`` set, not empty and
+not "0" routes the update through the fused optimizer kernel, by the rule of
+``paddle_tpu_torch/bench.py`` (its ``fused_opt_from_env``), which is not
+the JAX benchmark's: there any non-empty value, "0" included, turns the
+fused update on (``benchmark/run_benchmarks.py:940-950``).
 
 Prints one JSON line: samples/s (the batch times the timed steps over their
 summed wall time), the last loss, and on the card its name and power limit

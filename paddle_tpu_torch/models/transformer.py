@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.dtypes import convert_dtype
 from paddle_tpu_torch.nn.attention import MultiHeadAttention
@@ -189,13 +190,13 @@ class Transformer(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         g = torch.Generator().manual_seed(seed)
-        std = cfg.d_model ** -0.5
-        self.src_emb = Embedding(cfg.src_vocab_size, cfg.d_model, std=std,
-                                 generator=g)
+        emb_init = I.Normal(0.0, cfg.d_model ** -0.5)
+        self.src_emb = Embedding(cfg.src_vocab_size, cfg.d_model,
+                                 weight_init=emb_init, generator=g)
         # one module under both names: tied source/target embedding
         self.trg_emb = (self.src_emb if cfg.share_embedding else
-                        Embedding(cfg.trg_vocab_size, cfg.d_model, std=std,
-                                  generator=g))
+                        Embedding(cfg.trg_vocab_size, cfg.d_model,
+                                  weight_init=emb_init, generator=g))
         self.enc_drop = Dropout(cfg.dropout)
         self.dec_drop = Dropout(cfg.dropout)
         self.enc_layers = nn.ModuleList(

@@ -32,10 +32,6 @@ def xavier_uniform(shape, generator):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
 
 
-def normal(shape, std, generator):
-    return torch.randn(shape, generator=generator) * std
-
-
 class Linear(nn.Module):
     """fc: ``act(x @ w + b)``, w ``[in, out]`` cast to x's dtype per call
     as ``paddle_tpu/nn/layers.py:46`` does. ``weight_init`` is an
@@ -61,34 +57,43 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer norm over the trailing dims, epsilon 1e-5."""
+    """layer_norm over the trailing ``normalized_shape`` dims
+    (``paddle_tpu/nn/layers.py:239-256``): float32 ``scale`` (ones) and
+    ``bias`` (zeros) parameters, each absent when its flag is off.
+    ``use_pallas`` routes a 2-D input normalized over its last dim to the
+    forward-only kernel (``nn_ops.layer_norm``)."""
 
-    def __init__(self, normalized_shape):
+    def __init__(self, normalized_shape, epsilon=1e-5, scale=True,
+                 shift=True, use_pallas=False):
         super().__init__()
-        shape = ((normalized_shape,) if isinstance(normalized_shape, int)
-                 else tuple(normalized_shape))
-        self.scale = nn.Parameter(torch.ones(shape))
-        self.bias = nn.Parameter(torch.zeros(shape))
+        self.shape = ((normalized_shape,) if isinstance(normalized_shape, int)
+                      else tuple(normalized_shape))
+        self.epsilon, self.use_pallas = epsilon, use_pallas
+        self.scale = nn.Parameter(torch.ones(self.shape)) if scale else None
+        self.bias = nn.Parameter(torch.zeros(self.shape)) if shift else None
 
     def forward(self, x):
-        begin = x.dim() - self.scale.dim()
+        begin = x.dim() - len(self.shape)
         return nn_ops.layer_norm(x, self.scale, self.bias,
-                                 begin_norm_axis=begin)
+                                 begin_norm_axis=begin, epsilon=self.epsilon,
+                                 use_pallas=self.use_pallas)
 
 
 class Embedding(nn.Module):
-    """lookup_table; ``std`` is the normal init's scale."""
+    """lookup_table (``paddle_tpu/nn/layers.py:273-288``). ``weight_init``
+    is an initializer of ``paddle_tpu_torch/initializer.py``, XavierNormal
+    by default as in the JAX layer."""
 
-    def __init__(self, num_embeddings, embedding_dim, std=None,
-                 generator=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 weight_init=None, generator=None):
         super().__init__()
-        if std is None:   # XavierNormal, the JAX layer's default
-            std = math.sqrt(2.0 / (num_embeddings + embedding_dim))
+        self.padding_idx = padding_idx
+        weight_init = weight_init or I.XavierNormal()
         self.weight = nn.Parameter(
-            normal((num_embeddings, embedding_dim), std, generator))
+            weight_init((num_embeddings, embedding_dim), generator))
 
     def forward(self, ids):
-        return nn_ops.embedding(ids, self.weight)
+        return nn_ops.embedding(ids, self.weight, self.padding_idx)
 
 
 class Dropout(nn.Module):

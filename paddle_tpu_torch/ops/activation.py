@@ -1,14 +1,26 @@
-"""Activations the serving path names (counterpart of
-``paddle_tpu/ops/activation.py``): identity and relu, the FFN's ``fc1``
-activation. The rest of the table comes with the slices that use it."""
+"""Activations the ported paths name (counterpart of
+``paddle_tpu/ops/activation.py``): identity and relu (the Transformer's
+``fc1``), gelu (BERT's ``fc1`` and MLM transform) and tanh (BERT's
+pooler). The rest of the table comes with the slices that use it."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def relu(x):
     return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def gelu(x):
+    """GELU in its tanh approximation, the JAX table's ``"gelu"``
+    (``paddle_tpu/ops/activation.py:75``, ``approximate=True``)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def _identity(x):
@@ -18,6 +30,8 @@ def _identity(x):
 _ACTIVATIONS = {
     None: _identity,
     "relu": relu,
+    "tanh": tanh,
+    "gelu": gelu,
 }
 
 

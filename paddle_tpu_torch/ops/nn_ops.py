@@ -1,11 +1,12 @@
 """NN ops of the serving and training paths (counterpart of
-``paddle_tpu/ops/nn_ops.py``): ``layer_norm`` (differentiated by plain
-autograd), ``embedding`` and ``dropout``; for ResNet, ``conv2d`` with its
-fused-kernel routing knob (``CONV_FUSED``), ``conv2d_stem_s2d``,
-``pool2d`` (its max pools routed to ``kernels/pool_fused`` by
-``pool_fused.POOL_FUSED``) and ``batch_norm`` (with an fp8-residual mode that a
-``BatchNorm`` module pins; the JAX module's process-wide
-``BN_LOWP_RESIDUAL`` default is not ported).
+``paddle_tpu/ops/nn_ops.py``): ``layer_norm`` (the plain route
+differentiated by autograd, ``use_pallas`` routing a 2-D row norm to its
+forward-only kernel), ``embedding`` and ``dropout``; for ResNet,
+``conv2d`` with its fused-kernel routing knob (``CONV_FUSED``),
+``conv2d_stem_s2d``, ``pool2d`` (its max pools routed to
+``kernels/pool_fused`` by ``pool_fused.POOL_FUSED``) and ``batch_norm``
+(with an fp8-residual mode that a ``BatchNorm`` module pins; the JAX
+module's process-wide ``BN_LOWP_RESIDUAL`` default is not ported).
 
 The routing knob keeps the JAX module's contract: a process-wide default
 (``set_conv_fused``) and a scope that outranks it (``conv_fused``). JAX
@@ -20,13 +21,20 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import pool_fused
+from paddle_tpu_torch.kernels.layer_norm import fused_layer_norm
 from paddle_tpu_torch.ops.activation import get_activation
 
 
-def layer_norm(x, scale=None, bias=None, begin_norm_axis=1, epsilon=1e-5):
+def layer_norm(x, scale=None, bias=None, begin_norm_axis=1, epsilon=1e-5,
+               use_pallas=False):
     """layer_norm_op parity (``paddle_tpu/ops/nn_ops.py:794``): normalize
     over dims ``[begin_norm_axis:]`` in float32 and cast back to x's
-    dtype."""
+    dtype. With ``use_pallas``, a 2-D x normalized over its last dim takes
+    the forward-only kernel ``kernels/layer_norm.fused_layer_norm``, which
+    has no gradient, as in the JAX op (``:799-801``); every other call
+    takes the plain route below, differentiated by autograd."""
+    if use_pallas and x.dim() == 2 and begin_norm_axis == 1:
+        return fused_layer_norm(x, scale, bias, epsilon, device=x.device)
     dims = tuple(range(begin_norm_axis, x.dim()))
     xf = x.float()
     m = xf.mean(dim=dims, keepdim=True)

@@ -1,7 +1,10 @@
 """The work ``chip_smoke.py`` counts for its bound: only the keys a query
 keeps need their K and V rows and their scores; a query with no key kept
 needs all of V (it returns V's mean) and no K. Counts are exact
-integers, checked against sums written out by hand."""
+integers, checked against sums written out by hand. Also the script's
+shapes, launch counts a step, gates and rounding floors of its phases."""
+
+import contextlib
 
 import pytest
 import torch
@@ -100,28 +103,28 @@ def test_training_phase_shapes_are_transformer_long():
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
     assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "flash_bwd",
-                                  "flash_fwd", "fused_update", "pool_fused",
-                                  "seqpool"]
+                                  "flash_fwd", "fused_update", "layer_norm",
+                                  "pool_fused", "seqpool"]
 
 
 def test_permuted_keys_is_the_same_attention():
-    """T2's reordered route: the trainable flash op fed the keys in another
-    order gives the same output and the same dq, dk and dv, up to float32
-    rounding."""
-    from paddle_tpu_torch.kernels import attention as A
+    """T2's reordered route: the flash route of the attention, fed the keys,
+    values and [B, 1, 1, T] mask in another order, gives the same output
+    and the same dq, dk and dv, up to float32 rounding."""
+    from paddle_tpu_torch.nn import attention as NA
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn(2, 2, t, 8, generator=g)
                    for t in (5, 7, 7, 5))
-    mask = _mask([7, 4], 7)
-    op, runs = A.flash_attn_op, []
+    mask = _mask([7, 4], 7)[:, None, None, :]
+    fn, runs = NA.scaled_dot_product_attention, []
     for reorder in (False, True):
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         route = chip_smoke.permuted_keys(seed=3) if reorder else \
             chip_smoke.contextlib.nullcontext()
         with route:
-            o = A.flash_attention(*qkv, kv_mask=mask, device="cpu")
+            o = NA.scaled_dot_product_attention(*qkv, mask, use_flash=True)
         runs.append((o, *torch.autograd.grad((o * do).sum(), qkv)))
-    assert A.flash_attn_op is op
+    assert NA.scaled_dot_product_attention is fn
     for a, b in zip(*runs):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
@@ -158,8 +161,9 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         {k: v for k, v in per_step.items() if not k.startswith("pool")}
     assert (chip_smoke.R_EVAL["pool_fwd"], chip_smoke.R_EVAL["pool_bwd"]) \
         == (1, 0)
-    assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool"}
-    assert len(chip_smoke.KERNELS) == 11
+    assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
+                                       "layer_norm"}
+    assert len(chip_smoke.KERNELS) == 12
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [
@@ -181,3 +185,81 @@ def test_seqpool_work_counts_the_distinct_rows():
     ids = torch.tensor([[0, 3, 0], [7, 0, 3]])
     assert chip_smoke.seqpool_work(ids, 4, 4) == (
         4 * 4 * (3 + 2) + 4 * 6, 6 * 4)
+
+
+def test_layer_norm_work_counts_x_y_and_the_affine_once():
+    """bf16 [32768, 1024] with scale and bias: x read and y written once
+    (134.2 MB) plus the two float32 vectors; 40.07 us at 3.35 TB/s."""
+    nbytes, ops = chip_smoke.ln_work(32768, 1024, 2, True)
+    assert nbytes == 2 * 32768 * 1024 * 2 + 8 * 1024
+    assert ops == chip_smoke.LN_FLOPS_PER_ELEMENT * 32768 * 1024
+    ms, by = chip_smoke.bound_ms(nbytes, ops, torch.float32)
+    assert by == "bytes" and ms == pytest.approx(0.04007, rel=1e-3)
+    assert chip_smoke.ln_work(7, 10, 4, False) == (2 * 7 * 10 * 4,
+                                                   8 * 7 * 10)
+
+
+@pytest.mark.parametrize("dtype,mant", [(torch.bfloat16, 7),
+                                        (torch.float16, 10)])
+def test_layer_norm_gate_allows_one_ulp_and_no_more(dtype, mant):
+    ref = torch.tensor([1.0, -3.0, 0.25, 100.0]).to(dtype)
+    ulp = torch.tensor([2.0 ** -mant, 2.0 ** (1 - mant), 2.0 ** (-2 - mant),
+                        2.0 ** (6 - mant)])
+    one = (ref.float() + ulp).to(dtype)
+    two = (ref.float() + 2 * ulp).to(dtype)
+    assert chip_smoke.ln_error(ref, ref)[2]
+    err, ulps, ok = chip_smoke.ln_error(one, ref)
+    assert ok and err == pytest.approx(2.0 ** (6 - mant))
+    assert not chip_smoke.ln_error(two, ref)[2]
+    f32 = torch.tensor([1.0, 2.0])
+    assert chip_smoke.ln_error(f32 * (1 + 1e-6), f32)[2]
+    assert not chip_smoke.ln_error(f32 * (1 + 1e-4), f32)[2]
+
+
+def test_bert_launches_a_step():
+    assert chip_smoke.b_expect(True) == {
+        "flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+        "layer_norm": 0, "fused_update": 0}
+    assert set(chip_smoke.b_expect(False).values()) == {0}
+    assert set(chip_smoke.b_expect(False)) == set(chip_smoke.B_KEYS)
+
+
+def test_bert_batch_pads_no_row_entirely():
+    ids, labels, weights, nsp = chip_smoke.bert_batch(8, 30522, "cpu", 0)
+    assert ids.shape == labels.shape == weights.shape == (8, 128)
+    assert bool((ids != 0).any(1).all()) and bool((ids[0] != 0).all())
+    assert bool((ids == 0).any())
+    assert bool((weights[ids == 0] == 0).all()) and weights.sum() > 0
+    assert int(ids.max()) < 30522 and set(nsp.tolist()) <= {0, 1}
+
+
+# B1's dense and flash BERT ([B, 1, 1, T] padding mask) and T2's decoder
+# self-attention (a causal [1, 1, T, T] mask, which the flash route hands
+# to the dense one)
+@pytest.mark.parametrize("use_flash, causal_mask", [
+    (False, False), (True, False), (True, True)],
+    ids=["dense", "flash", "causal_mask"])
+def test_permuted_keys_covers_every_route(use_flash, causal_mask):
+    """Every attention of the model fed its keys, values and mask in
+    another order gives the same output and input gradients, up to float32
+    rounding, on the dense and the flash route."""
+    from paddle_tpu_torch.nn import MultiHeadAttention
+    gen = torch.Generator().manual_seed(0)
+    mha = MultiHeadAttention(32, 4, use_flash=use_flash, generator=gen)
+    x = torch.randn(2, 16, 32, generator=gen).requires_grad_()
+    if causal_mask:
+        mask = torch.ones(16, 16, dtype=torch.bool).tril()[None, None]
+    else:
+        mask = torch.ones(2, 1, 1, 16, dtype=torch.bool)
+        mask[1, ..., 11:] = False
+    out = []
+    for reorder in (False, True):
+        with chip_smoke.permuted_keys(3) if reorder else \
+                contextlib.nullcontext():
+            y = mha(x, mask=mask)
+            (g,) = torch.autograd.grad(y.square().sum(), x)
+        out.append((y.detach(), g))
+    assert not torch.equal(out[0][0], out[1][0]) or \
+        not torch.equal(out[0][1], out[1][1])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
 forward and backward, the fused optimizer update, the conv kernels, the
-fused max pool and the embedding seqpool against their plain versions.
+fused max pool, the embedding seqpool and the row LayerNorm against their
+plain versions, and the kernel launches of a tiny BERT step.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a GPU machine without JAX:
@@ -490,3 +491,83 @@ def test_pool_and_seqpool_wrappers_raise_and_never_fall_back(cuda):
         ep.seqpool_cuda(ids, table)
     with pytest.raises(TypeError):
         ep.seqpool_cuda(ids.int(), table.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", [(4096, 768), (100, 96), (7, 10),
+                                   (1, 1000), (64, 4096), (33, 301)],
+                         ids=str)
+def test_layer_norm_kernel_matches_plain_version(cuda, shape, dtype):
+    """float32 within 1e-5 of the largest output (sums in another order);
+    bf16 / float16 within one ulp of the plain value plus the float32
+    allowance (one rounding of float32 results that agree to ~1e-7); one
+    launch a call through the op."""
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.ops import nn_ops
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = (torch.randn(*shape, device=cuda, generator=gen) * 3 + 1).to(dtype)
+    s = torch.rand(shape[1], device=cuda, generator=gen) + 0.5
+    b = torch.randn(shape[1], device=cuda, generator=gen)
+    before = ln.fused_layer_norm.launches
+    got = nn_ops.layer_norm(x, s, b, 1, 1e-12, use_pallas=True)
+    torch.cuda.synchronize()
+    assert ln.fused_layer_norm.launches == before + 1
+    ref = ln.fused_layer_norm_reference(x, s, b, 1e-12)
+    assert got.dtype == dtype and got.shape == ref.shape
+    diff = (got.float() - ref.float()).abs()
+    amax = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5 * amax
+        return
+    mant = 7 if dtype == torch.bfloat16 else 10
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        ref.float().abs().clamp(min=2.0 ** -14))) - mant)
+    assert ((diff - 1e-5 * amax).clamp(min=0) <= ulp).all()
+
+
+def test_layer_norm_routes_and_refuses_a_gradient_on_the_card(cuda):
+    """The layer launches the kernel on a 2-D input and not on a 3-D one;
+    the kernel route's backward raises; the wrapper refuses what the
+    kernel does not take."""
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.nn.layers import LayerNorm
+    layer = LayerNorm(64, epsilon=1e-12, use_pallas=True).to(cuda)
+    x = torch.randn(2, 8, 64, device=cuda)
+    for inp, n in ((x.reshape(16, 64), 1), (x, 0)):
+        before = ln.fused_layer_norm.launches
+        with torch.no_grad():
+            layer(inp)
+        assert ln.fused_layer_norm.launches == before + n
+    x2 = x.reshape(16, 64).clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        torch.autograd.grad(layer(x2).sum(), x2)
+    with pytest.raises(TypeError):            # no kernel for float64
+        ln.layer_norm_cuda(x.reshape(16, 64).double())
+    with pytest.raises(ValueError):           # not contiguous
+        ln.layer_norm_cuda(x.reshape(16, 64).t())
+    with pytest.raises(TypeError):            # scale must be float32
+        ln.layer_norm_cuda(x.reshape(16, 64), torch.ones(
+            64, device=cuda, dtype=torch.bfloat16))
+
+
+def test_bert_flash_step_launches_the_flash_kernels_and_no_row_norm(cuda):
+    """A tiny BERT step with ``use_pallas=True`` on the card: one flash
+    forward, dQ and dK/dV launch a layer, none of the row LayerNorm."""
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    model = BertForPretraining(BertConfig.tiny(use_pallas=True),
+                               device=cuda)
+    ids = torch.randint(1, 128, (2, 32), device=cuda)
+    ids[1, 20:] = 0
+    before = (port.flash_attention.launches, port.flash_bwd_dq_cuda.launches,
+              port.flash_bwd_dkv_cuda.launches, ln.fused_layer_norm.launches)
+    mlm, nsp = model(ids)
+    loss = model.loss(mlm, nsp, ids, torch.ones(2, 32, device=cuda),
+                      ids[:, 0] % 2)[0]
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (port.flash_attention.launches, port.flash_bwd_dq_cuda.launches,
+             port.flash_bwd_dkv_cuda.launches, ln.fused_layer_norm.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 0]
+    assert torch.isfinite(loss)

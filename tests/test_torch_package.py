@@ -42,7 +42,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
               "kernels.tiles", "kernels.conv_fused", "kernels.epilogues",
               "amp", "initializer", "models.resnet", "bench",
               "kernels.pool_fused", "kernels.embedding_pool",
-              "data.datasets", "imdb_bench"):
+              "data.datasets", "imdb_bench", "kernels.layer_norm",
+              "models.bert", "bert_bench"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -64,7 +65,8 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     names = {p.name for p in files}
     assert {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh",
             "fused_update.cu", "brgemm.cu", "conv_kxk.cu",
-            "igemm.cuh", "pool_fused.cu", "seqpool.cu"} <= names
+            "igemm.cuh", "pool_fused.cu", "seqpool.cu",
+            "layer_norm.cu"} <= names
     offenders = []
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
