@@ -6,7 +6,8 @@
 Phases, each of which fails the run (non-zero exit) on its own:
 
 1. build    every kernel of the paths from ``paddle_tpu_torch/csrc`` (one
-            ``nvcc`` per source, all started together);
+            ``nvcc`` per source, all started together); ``cuobjdump -sass``
+            must find wgmma (``HGMMA``) in the tensor-core flash forward;
 
 Then the ResNet-50 path (``paddle_tpu_torch/bench.py``'s step with the conv
 kernels on: ``csrc/brgemm.cu`` for the 1x1 convs, ``csrc/conv_kxk.cu`` for
@@ -108,20 +109,27 @@ Then the serving path:
 
 2. kernels  the flash forward, through the wrapper the model calls, against
             its plain PyTorch version on the card, at the serving path's
-            shapes, in float32 (TF32 off) and bfloat16, with a fully
-            masked row and a causal case;
+            shapes and BERT's, in float32 (TF32 off) and bfloat16, with a
+            fully masked row, causal cases (one at Tq = Tk = 512 without a
+            mask: the tile skip), ragged edges and D = 100 and 128. The
+            route counters must show the kernel ``fwd_route`` names: the
+            tensor cores (``csrc/flash_fwd_tc.cu``) for bf16 with D a
+            multiple of 16 and Tq >= 16, the SIMT kernel
+            (``csrc/flash_fwd.cu``) for float32, decode and D = 100;
 3. serving  Transformer-base (full width, 6+6 layers, bf16, flash
             attention, random weights from ``--seed``) behind
             ``BatchingGeneratorServer(max_batch=64)``: a few dozen requests
             of 8-64 tokens from several threads, one ``max_new`` request
             and one that expires under ``ttl``; the flash kernel's launch
-            count over this phase must equal 6 per batch plus 12 per
-            decode step;
+            count over this phase must equal 6 per batch (the encoder, on
+            the tensor cores) plus 12 per decode step (on the SIMT kernel);
 4. e2e      the same model in float32: one ``generate()`` of a 64x64 batch
             through the kernel and through its plain version must give
             identical tokens; in bf16 the per-step logit difference and the
             token agreement are reported;
-5. numbers  the forward kernel's device time (torch.profiler), its plain
+5. numbers  the forward kernel's device time (torch.profiler) at each path
+            shape and BERT's, on the route the shape takes (the SIMT
+            kernel's beside the tensor-core kernel's), its plain
             version's, and
             ``torch.nn.functional.scaled_dot_product_attention``'s as a
             yardstick (the port never calls it), at each path shape,
@@ -135,10 +143,11 @@ Then the training path, ``transformer_long`` at full width and depth
 (vocab 8192, 6+6 layers, d_model 512, 8 heads, remat saving the flash
 outputs, flash attention, batch 4 x 4096, Adam):
 
-T1. kernels  the flash backward's dq and dk/dv kernels against their plain
-             version at the path's flash shape [4*8, 4096, 4096, 64], at a
-             ragged masked shape and at a causal one, in float32 and
-             bfloat16 (and the forward at the path's shape); the fused
+T1. kernels  the flash forward (route counted) and then the backward's dq
+             and dk/dv kernels, fed that forward's o and lse, against their
+             plain versions at the path's flash shape [4*8, 4096, 4096, 64],
+             at BERT's, at a ragged masked shape and at a causal one, in
+             float32 and bfloat16; the fused
              optimizer update against the plain unfused sweep (Adam on the
              transformer_long parameters, SGD, Momentum with a global-norm
              clip and AdamW on a small tree): moments bitwise, parameters
@@ -153,15 +162,17 @@ T2. train    three Adam steps in float32 with the fused update, three with
              ``ADAM_PAIR_BOUND``; the parameters after step 1 equal
              wherever the two gradients agree; kernel launches counted per
              step (12
-             flash forward, 12 dq, 12 dk/dv, one fused update); loss and
+             flash forward, on the SIMT kernel in float32 and the tensor
+             cores in bf16, 12 dq, 12 dk/dv, one fused update); loss and
              gradients of remat "save_flash", "none" (24 forward launches)
              and no remat held equal; three bf16 steps reported;
 T3. numbers  one profiled bf16 training step: step time, tokens/s, device
-             busy time and idle share, top kernels, and each kernel's
-             device time at the path's shape; beside it its bound, and its
-             plain version and a library yardstick that the port never
-             calls (SDPA forward and backward,
-             ``torch.optim.Adam(fused=True)``) timed with CUDA events.
+             busy time and idle share, top kernels (12 tensor-core forward
+             launches, no SIMT one), and each kernel's device time at the
+             path's shape; beside it its bound, and its plain version and a
+             library yardstick that the port never calls (SDPA forward and
+             backward, ``torch.optim.Adam(fused=True)``) timed with CUDA
+             events, and the SIMT forward on the same inputs.
 
 The last lines are the ``{"kernels": [...]}`` object, the card's name and
 power limit as ``nvidia-smi`` gives them, and the result object
@@ -196,6 +207,12 @@ KERNELS = {
     "flash_fwd": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "paddle_tpu/kernels/attention.py:272",
+    },
+    # the same TPU kernel's second implementation: bf16 on the tensor cores
+    "flash_fwd_tc": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_fwd_tc.cu",
         "replaces": "paddle_tpu/kernels/attention.py:272",
     },
     "flash_bwd_dq": {
@@ -273,8 +290,35 @@ CHECK_SHAPES = PATH_SHAPES + [
     ("causal", 64, 8, 64, 64, 64, True, None),
     ("causal_ragged", 3, 2, 40, 40, 16, True, None),
     ("ragged_d100", 3, 2, 5, 70, 100, False, "padding"),
+    # the tensor-core kernel's second column block, with padded rows
+    ("d128", 2, 4, 256, 256, 128, False, "padding"),
+    # causal without a mask: the tensor-core kernel skips future K/V tiles
+    ("causal_512", 2, 8, 512, 512, 64, True, None),
 ]
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def expect_route(dtype, tq, d):
+    """The forward kernel a check must see launched (contiguous, aligned
+    inputs): the tensor-core kernel for bf16 with D a multiple of 16 and
+    Tq >= 16; the SIMT kernel for float32, decode (Tq = 1) and D = 100."""
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 and tq >= 16 \
+        else "simt"
+
+
+def route_counts():
+    counts = train_counts()
+    return {"tc": counts["flash_fwd_tc"], "simt": counts["flash_fwd_simt"]}
+
+
+def check_route(phase, name, before, want, calls=1):
+    """Fail unless the ``calls`` forward launches since ``before`` (a
+    ``route_counts()``) all took route ``want``."""
+    after = route_counts()
+    got = {r: after[r] - before[r] for r in after}
+    if got != {r: calls if r == want else 0 for r in got}:
+        fail(phase, f"{name}: forward launches by route {got}, expected "
+                    f"{calls} on {want}")
 
 
 def log(*parts):
@@ -329,17 +373,42 @@ def make_src(b, rs, max_len=64, min_len=8, vocab=32000):
 def phase_build():
     from paddle_tpu_torch.core import native_build
     t0 = time.perf_counter()
-    native_build.build(SOURCES)
+    paths = native_build.build(SOURCES)
     seconds = time.perf_counter() - t0
     log(f"[build] {len(SOURCES)} kernel sources built in parallel in "
         f"{seconds:.2f} s")
     for name, info in native_build.build_info.items():
+        log(f"[build] {name}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"[build] {name}: {line.strip()}")
     return {"seconds": seconds,
             "per_kernel": {n: i["seconds"]
-                           for n, i in native_build.build_info.items()}}
+                           for n, i in native_build.build_info.items()},
+            "sass": sass_check(paths["flash_fwd_tc"], "flash_fwd_tc_kernel",
+                               "HGMMA")}
+
+
+def sass_check(lib, symbol, opcode):
+    """Count ``opcode`` in the SASS of every function of ``lib`` whose name
+    holds ``symbol`` (``cuobjdump -sass``); fail unless each has some."""
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    res = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(1, f"cuobjdump -sass {lib} failed: {res.stderr[-2000:]}")
+    counts = {}
+    for part in res.stdout.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if symbol in name:
+            counts[name] = part.count(opcode)
+    log(f"[build] SASS of {symbol}: {opcode} per function {counts}")
+    if not counts or not all(counts.values()):
+        fail(1, f"{symbol} has no {opcode} in its SASS: {counts}")
+    return counts
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -354,12 +423,15 @@ def phase_kernels(dev, seed):
             name, b, h, tq, tk, d, causal, _ = shape
             q, k, v, m = make_qkv(shape, dtype, dev, seed)
             before = flash_attention.launches
+            routes = route_counts()
+            want = expect_route(dtype, tq, d)
             o = flash_attention(q, k, v, causal, d ** -0.5, kv_mask=m,
                                 device=dev)
             if flash_attention.launches != before + 1:
                 fail(2, f"flash_attention did not launch the kernel ({name})")
             _, lse = flash_fwd_cuda(q, k, v, causal, d ** -0.5, m)
             torch.cuda.synchronize()
+            check_route(2, f"{name} {dtype}", routes, want, calls=2)
             ro, rl = flash_attention_reference(q, k, v, causal, d ** -0.5, m)
             torch.cuda.synchronize()
             diff = (o.float() - ro.float()).abs()
@@ -377,10 +449,10 @@ def phase_kernels(dev, seed):
                     bool((lse[0] < -1e29).all())
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "shape": [b, h, tq, tk, d], "causal": causal,
-                   "max_abs_err": diff.max().item(), "rel_err": o_err,
-                   "lse_rel_err": lse_err, "ok": ok}
+                   "route": want, "max_abs_err": diff.max().item(),
+                   "rel_err": o_err, "lse_rel_err": lse_err, "ok": ok}
             results.append(rec)
-            log(f"[kernels] flash_fwd {rec['dtype']:>8} {name:<14} "
+            log(f"[kernels] flash_fwd {want:>4} {rec['dtype']:>8} {name:<14} "
                 f"[{b},{h},{tq},{tk},{d}] max|o-plain| "
                 f"{rec['max_abs_err']:.3e}"
                 f" rel {o_err:.3e} lse rel {lse_err:.3e} "
@@ -389,8 +461,8 @@ def phase_kernels(dev, seed):
                 fail(2, f"flash_fwd {rec}")
             if dtype == torch.bfloat16 and (shape in PATH_SHAPES or
                                             shape is BERT_FLASH):
-                worst["flash_fwd"] = max(worst.get("flash_fwd", 0.0),
-                                         rec["max_abs_err"])
+                key = "flash_fwd_tc" if want == "tc" else "flash_fwd"
+                worst[key] = max(worst.get(key, 0.0), rec["max_abs_err"])
     return results, worst
 
 
@@ -452,6 +524,7 @@ def phase_serving(model, dev, seed, n_first=64, n_second=20, threads=4):
             t.join(timeout=60)
 
     flash_attention.launches = 0
+    routes = route_counts()
     t0 = time.perf_counter()
     try:
         wave(0, n_first)
@@ -473,6 +546,7 @@ def phase_serving(model, dev, seed, n_first=64, n_second=20, threads=4):
         srv.stop()
         del gen.generate, model.decode_step   # back to the class methods
     launches = flash_attention.launches
+    by_route = {r: n - routes[r] for r, n in route_counts().items()}
     vocab = cfg.trg_vocab_size
     for r in rows + [trimmed_row]:
         if (r.shape != (64,) or r[0] != 1 or (r < 0).any()
@@ -485,14 +559,22 @@ def phase_serving(model, dev, seed, n_first=64, n_second=20, threads=4):
     if launches == 0 or launches != expected:
         fail(3, f"flash_fwd launches {launches}, expected {expected} "
                 f"({counts['batches']} batches, {counts['steps']} steps)")
+    # the encoder's self-attention (bf16, Tq = 64) on the tensor cores, the
+    # decode steps' (Tq = 1) on the SIMT kernel
+    want = {"tc": cfg.n_layer * counts["batches"],
+            "simt": 2 * cfg.n_layer * counts["steps"]}
+    if by_route != want:
+        fail(3, f"forward launches by route {by_route}, expected {want}")
     n_tok = int(sum((r[1:] != 0).sum() for r in rows + [trimmed_row]))
     out = {"requests": len(rows) + 2, "batches": counts["batches"],
            "decode_steps": counts["steps"], "flash_fwd_launches": launches,
+           "launches_by_route": by_route,
            "generated_tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall}
     log(f"[serving] {out['requests']} requests (1 expired as asked, 1 "
         f"trimmed) in {counts['batches']} batches, {counts['steps']} decode "
-        f"steps; flash_fwd launches {launches} = 6 x batches + 12 x steps; "
+        f"steps; flash_fwd launches {launches} = 6 x batches + 12 x steps "
+        f"(tensor cores {by_route['tc']}, SIMT {by_route['simt']}); "
         f"{n_tok} tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s")
     return out
 
@@ -612,28 +694,45 @@ def _device_us(entry):
                    getattr(entry, "self_cuda_time_total", 0.0))
 
 
-def profiled(fn, label):
+PROFILE_SESSIONS = 3
+
+
+def profiled(fn, label, expect=None):
     """Run ``fn()`` under torch.profiler; returns (device time in ms summed
     over every kernel and copy, [(name, count, device ms)] by time, the
     wall time of the profiled call in ms). A session without device
-    activity is logged; the caller fails."""
+    activity is logged; the caller fails. ``expect`` maps a kernel symbol
+    to the launches ``fn()`` makes of it (its counter says so): CUPTI can
+    drop an activity record (an H100 run once profiled 49 of 50 identical
+    launches), so a session that counts other numbers is logged and ``fn``
+    profiled again, up to PROFILE_SESSIONS sessions in all. The last
+    session is returned either way, and the caller's own gate on the
+    counts decides."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for session in range(1, PROFILE_SESSIONS + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    rows = [(e.key, e.count, _device_us(e) / 1e3) for e in events
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    if not rows:
-        log(f"[profile] the session of {label} recorded no device activity "
-            f"({len(events)} event kinds, device types "
-            f"{sorted({str(e.device_type) for e in events})})")
-    rows.sort(key=lambda r: -r[2])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        rows = [(e.key, e.count, _device_us(e) / 1e3) for e in events
+                if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        if not rows:
+            log(f"[profile] the session of {label} recorded no device "
+                f"activity ({len(events)} event kinds, device types "
+                f"{sorted({str(e.device_type) for e in events})})")
+        rows.sort(key=lambda r: -r[2])
+        got = {sym: sum(r[1] for r in rows if sym in r[0])
+               for sym in (expect or {})}
+        if got == (expect or {}):
+            break
+        log(f"[profile] session {session} of {label} counted {got}, "
+            f"expected {expect}"
+            + ("; profiling again" if session < PROFILE_SESSIONS else ""))
     return sum(r[2] for r in rows), rows, wall_ms
 
 
@@ -649,16 +748,22 @@ def device_ms(fn, arg_sets, iters, label):
 
 
 def phase_numbers(dev, seed, iters=200):
-    """Per path shape: device time per call (profiler) of the kernel, its
-    plain version and SDPA, and the same calls' time per call with the
-    host's launch cost included (CUDA events around a loop of calls)."""
+    """Per path shape (the serving shapes, and BERT's in bf16): device time
+    per call (profiler) of the kernel the route takes, its plain version
+    and SDPA, and the same calls' time per call with the host's launch cost
+    included (CUDA events around a loop of calls). Where the route is the
+    tensor cores, the SIMT kernel at the same inputs too."""
     from paddle_tpu_torch.kernels.attention import (flash_attention_reference,
-                                                    flash_fwd_cuda)
+                                                    flash_fwd_cuda,
+                                                    flash_fwd_launch)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in PATH_SHAPES:
+        shapes = PATH_SHAPES + ([BERT_FLASH] if dtype == torch.bfloat16
+                                else [])
+        for shape in shapes:
             name, b, h, tq, tk, d, causal, _ = shape
+            route = expect_route(dtype, tq, d)
             base = make_qkv(shape, dtype, dev, seed)
             per_call = sum(t.numel() * t.element_size()
                            for t in base[:3])
@@ -675,16 +780,24 @@ def phase_numbers(dev, seed, iters=200):
                 "library": (lambda q, k, v, m: sdpa(
                     q, k, v, attn_mask=m, scale=scale), lib_sets),
             }
+            if route == "tc":
+                fns["simt"] = (lambda q, k, v, m: flash_fwd_launch(
+                    "simt", q, k, v, causal, scale, m), sets)
+            routes = route_counts()
             call = {k: time_ms(f, a, iters) for k, (f, a) in fns.items()}
             t = {k: device_ms(f, a, iters, f"{name} {k}")
                  for k, (f, a) in fns.items()}
+            # the kernel's calls: time_ms's warm-up and iters, device_ms's
+            check_route(5, f"{name} {dtype}", routes, route,
+                        calls=len(sets) + 2 * iters)
             # the calls cycle through the sets: the bound of the mean call
             work = [attention_bound(q, k, m, causal) for q, k, _, m in sets]
             nbytes = sum(w[0] for w in work) / len(work)
             flops = sum(w[1] for w in work) / len(work)
             bound, bound_by = bound_ms(nbytes, flops, dtype)
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
-                   "shape": [b, h, tq, tk, d],
+                   "shape": [b, h, tq, tk, d], "route": route,
+                   "simt_ms": t.get("simt"),
                    "ms": t["kernel"], "plain_ms": t["plain"],
                    "library_ms": t["library"], "bound_ms": bound,
                    "bound_by": bound_by, "bytes": nbytes, "flops": flops,
@@ -692,9 +805,12 @@ def phase_numbers(dev, seed, iters=200):
                    "call_ms": call["kernel"], "plain_call_ms": call["plain"],
                    "library_call_ms": call["library"]}
             rows.append(rec)
+            simt = (f" (the SIMT kernel {t['simt'] * 1e3:.2f} us)"
+                    if "simt" in t else "")
             log(f"[numbers] flash_fwd {rec['dtype']:>8} {name:<14} "
-                f"[{b},{h},{tq},{tk},{d}] device time: kernel "
-                f"{t['kernel'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.2f} "
+                f"[{b},{h},{tq},{tk},{d}] device time: kernel ({route}) "
+                f"{t['kernel'] * 1e3:.2f} us{simt}, plain "
+                f"{t['plain'] * 1e3:.2f} "
                 f"us, sdpa {t['library'] * 1e3:.2f} us; bound "
                 f"{bound * 1e3:.2f} us ({bound_by}) = "
                 f"{rec['bound_share'] * 100:.1f}% of the kernel's time; per "
@@ -728,7 +844,9 @@ def phase_generate_profile(model, dev, seed, use_bf16, repeats=3):
     launches = flash_attention.launches - before
     if busy <= 0:
         fail(5, "torch.profiler recorded no device time for generate()")
-    flash = [r for r in kernels if "flash_fwd_kernel" in r[0]]
+    flash = [r for r in kernels if any(
+        KERNEL_SYMBOLS[key] in r[0] for key in ("flash_fwd",
+                                                "flash_fwd_tc"))]
     flash_ms = sum(r[2] for r in flash)
     out = {"use_bf16": use_bf16, "latency_ms": lat, "tokens_per_s": tps,
            "device_busy_ms": busy,
@@ -804,25 +922,36 @@ _COUNTED = {}
 
 
 def counted_wrappers():
-    """The wrapper that counts each kernel's launches, taken once, before
-    ``plain_kernels`` swaps any of them out."""
+    """(wrapper, attribute) that counts each kernel's launches, taken once,
+    before ``plain_kernels`` swaps any of them out: every forward launch,
+    each forward route's, the backward kernels' and the fused update's."""
     if not _COUNTED:
         from paddle_tpu_torch.kernels import attention as A
         from paddle_tpu_torch.kernels import fused_update as FU
-        _COUNTED.update(flash_fwd=A.flash_attention,
-                        flash_bwd_dq=A.flash_bwd_dq_cuda,
-                        flash_bwd_dkv=A.flash_bwd_dkv_cuda,
-                        fused_update=FU.fused_update_step)
+        _COUNTED.update(flash_fwd=(A.flash_attention, "launches"),
+                        flash_fwd_tc=(A.flash_fwd_cuda, "tc_launches"),
+                        flash_fwd_simt=(A.flash_fwd_cuda, "simt_launches"),
+                        flash_bwd_dq=(A.flash_bwd_dq_cuda, "launches"),
+                        flash_bwd_dkv=(A.flash_bwd_dkv_cuda, "launches"),
+                        fused_update=(FU.fused_update_step, "launches"))
     return _COUNTED
 
 
 def train_counts():
-    return {k: f.launches for k, f in counted_wrappers().items()}
+    return {k: getattr(f, a) for k, (f, a) in counted_wrappers().items()}
 
 
 def zero_counts():
-    for f in counted_wrappers().values():
-        f.launches = 0
+    for f, a in counted_wrappers().values():
+        setattr(f, a, 0)
+
+
+def fwd_counts(n, dtype):
+    """The forward's counts for ``n`` calls at shapes whose bf16 route is
+    the tensor cores (the training paths'): all on that route in bf16, all
+    on the SIMT kernel in float32."""
+    tc = n if dtype == torch.bfloat16 else 0
+    return {"flash_fwd": n, "flash_fwd_tc": tc, "flash_fwd_simt": n - tc}
 
 
 class plain_kernels:
@@ -885,46 +1014,50 @@ class permuted_keys:
 
 
 def bwd_inputs(shape, dtype, dev, seed):
-    """q, k, v, mask, the output cotangent do, and the forward's lse and
-    dvec = sum_d(do * o), as the autograd route feeds the kernels."""
+    """q, k, v, mask, the output cotangent do, and the forward's o, lse and
+    dvec = sum_d(do * o), as the autograd route feeds the kernels (the
+    forward kernel of the route its inputs take)."""
     from paddle_tpu_torch.kernels.attention import flash_fwd_cuda
     q, k, v, m = make_qkv(shape, dtype, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     do = torch.randn(q.shape, device=dev, generator=g).to(dtype)
     o, lse = flash_fwd_cuda(q, k, v, shape[6], q.shape[-1] ** -0.5, m)
     dvec = (do.float() * o.float()).sum(-1)
-    return q, k, v, m, do, lse, dvec
+    return q, k, v, m, do, o, lse, dvec
 
 
 def phase_train_kernels(dev, seed):
-    """T1a: dq and dkv against the plain version of the backward, and the
-    forward at the training shape against its plain version."""
+    """T1a: the forward (on the route its inputs take, counted) against its
+    plain version at every shape, then dq and dkv, fed that forward's o and
+    lse, against the plain version of the backward."""
     from paddle_tpu_torch.kernels.attention import (
         flash_attention_bwd_reference, flash_attention_reference,
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
     results, worst = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in BWD_CHECK_SHAPES:
             name, b, h, tq, tk, d, causal, _ = shape
-            q, k, v, m, do, lse, dvec = bwd_inputs(shape, dtype, dev, seed)
+            routes = route_counts()
+            want = expect_route(dtype, tq, d)
+            q, k, v, m, do, o, lse, dvec = bwd_inputs(shape, dtype, dev,
+                                                      seed)
+            check_route("T1", f"{name} {dtype}", routes, want)
             scale = d ** -0.5
-            if shape is TRAIN_FLASH:
-                o, _ = flash_fwd_cuda(q, k, v, causal, scale, m)
-                ro, rl = flash_attention_reference(q, k, v, causal, scale, m)
-                diff = (o.float() - ro.float()).abs()
-                o_err = (diff / (1 + ro.float().abs())).max().item()
-                lse_err = ((lse - rl).abs() / rl.abs().clamp(min=1)).max()
-                ok = o_err <= TOLERANCE[dtype] and lse_err.item() <= 1e-5
-                log(f"[T1] flash_fwd {str(dtype)[6:]:>8} {name:<14} "
-                    f"[{b},{h},{tq},{tk},{d}] max|o-plain| "
-                    f"{diff.max().item():.3e} rel {o_err:.3e} lse rel "
-                    f"{lse_err.item():.3e} {'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    fail("T1", f"flash_fwd at the training shape: o {o_err}, "
-                               f"lse {lse_err.item()}")
-                if dtype == torch.bfloat16:
-                    worst["flash_fwd"] = diff.max().item()
-                del o, ro, rl, diff
+            ro, rl = flash_attention_reference(q, k, v, causal, scale, m)
+            diff = (o.float() - ro.float()).abs()
+            o_err = (diff / (1 + ro.float().abs())).max().item()
+            lse_err = ((lse - rl).abs() / rl.abs().clamp(min=1)).max()
+            ok = o_err <= TOLERANCE[dtype] and lse_err.item() <= 1e-5
+            log(f"[T1] flash_fwd {want:>4} {str(dtype)[6:]:>8} {name:<14} "
+                f"[{b},{h},{tq},{tk},{d}] max|o-plain| "
+                f"{diff.max().item():.3e} rel {o_err:.3e} lse rel "
+                f"{lse_err.item():.3e} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail("T1", f"flash_fwd {name} {dtype}: o {o_err}, lse "
+                           f"{lse_err.item()}")
+            if dtype == torch.bfloat16 and shape is TRAIN_FLASH:
+                worst["flash_fwd_tc"] = diff.max().item()
+            del o, ro, rl, diff
             dq = flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, m)
             dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale,
                                         m)
@@ -1121,8 +1254,8 @@ def initial_grads(model32, init, batch, per_step, calls, seed):
             loss = loss_fn_for(model32, batch)(params)
             g = torch.autograd.grad(loss, list(params.values()))
             got = {k: v - before[k] for k, v in train_counts().items()}
-        expect = dict(per_step, flash_fwd=fwd, fused_update=0) if fwd else \
-            {k: 0 for k in per_step}
+        expect = dict(per_step, **fwd_counts(fwd, torch.float32),
+                      fused_update=0) if fwd else {k: 0 for k in per_step}
         if got != expect:
             fail("T2", f"gradients {name}: launched {got}, expected {expect}")
         if name in ("save_flash", "none", "no_remat"):
@@ -1231,7 +1364,7 @@ def phase_train(model32, dev, seed):
     init = {k: v.detach().clone() for k, v in model32.state_dict().items()}
     # one flash call per encoder layer and per cross-attention: 12
     calls = 2 * LONG_CFG["n_layer"]
-    per_step = {"flash_fwd": calls, "flash_bwd_dq": calls,
+    per_step = {**fwd_counts(calls, torch.float32), "flash_bwd_dq": calls,
                 "flash_bwd_dkv": calls, "fused_update": 1}
     zero_counts()
     out, runs = {}, {}
@@ -1314,7 +1447,8 @@ def phase_train(model32, dev, seed):
     model_bf = long_model(torch.bfloat16, dev, seed)
     model_bf.load_state_dict(init)
     before = train_counts()
-    losses, _ = train_steps(model_bf, batch, STEPS, True, per_step)
+    losses, _ = train_steps(model_bf, batch, STEPS, True, dict(
+        per_step, **fwd_counts(calls, torch.bfloat16)))
     for k, v in train_counts().items():
         path_counts[k] += v - before[k]
     out["bf16_losses"] = losses
@@ -1352,9 +1486,14 @@ def attention_bwd_bound(q, k, mask, causal, which):
 
 # the kernels' names in a profile
 KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                  "flash_fwd_tc": "flash_fwd_tc_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_kernel",
                   "fused_update": "fused_update_kernel"}
+# the kernels of a bf16 transformer_long step (its forward on the tensor
+# cores)
+T3_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv",
+              "fused_update")
 
 
 def phase_train_numbers(model32, model_bf, batch, dev, seed):
@@ -1388,15 +1527,25 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         step()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    busy, kernels, prof_ms = profiled(step, "the training step")
+    busy, kernels, prof_ms = profiled(
+        step, "the training step",
+        expect={KERNEL_SYMBOLS["flash_fwd_tc"]: 2 * LONG_CFG["n_layer"],
+                KERNEL_SYMBOLS["flash_fwd"]: 0})
     step_ms = sum(wall) / len(wall)
     by_kernel = {}
-    for key, sym in KERNEL_SYMBOLS.items():
+    for key in T3_KERNELS:
+        sym = KERNEL_SYMBOLS[key]
         rows = [r for r in kernels if sym in r[0]]
         by_kernel[key] = {"count": sum(r[1] for r in rows),
                           "device_ms": sum(r[2] for r in rows)}
         if by_kernel[key]["count"] == 0:
             fail("T3", f"the profile of the step shows no {sym}")
+    n_fwd = by_kernel["flash_fwd_tc"]["count"]
+    n_simt = sum(r[1] for r in kernels if KERNEL_SYMBOLS["flash_fwd"] in r[0])
+    if n_fwd != 2 * LONG_CFG["n_layer"] or n_simt:
+        fail("T3", f"the bf16 step ran {n_fwd} tensor-core and {n_simt} "
+                   f"SIMT forward launches, expected "
+                   f"{2 * LONG_CFG['n_layer']} and 0")
     step_rec = {"wall_ms": wall, "step_ms": step_ms,
                 "tokens_per_s": LONG_BATCH * LONG_LEN / step_ms * 1e3,
                 "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
@@ -1419,8 +1568,8 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
                for k, v in by_kernel.items()}
     # the flash kernels at the path's shape, bf16
     _, b, h, tq, tk, d, causal, _ = TRAIN_FLASH
-    q, k, v, m, do, lse, dvec = bwd_inputs(TRAIN_FLASH, torch.bfloat16, dev,
-                                           seed)
+    q, k, v, m, do, _, lse, dvec = bwd_inputs(TRAIN_FLASH, torch.bfloat16,
+                                              dev, seed)
     scale = d ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -1431,11 +1580,18 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_o, (ql, kl, vl), do, retain_graph=True), [()], 3)
     bnd = bound_ms(*attention_bound(q, k, m, causal), torch.bfloat16)
-    numbers["flash_fwd"].update(
+    numbers["flash_fwd_tc"].update(
         plain_ms=time_ms(lambda: A.flash_attention_reference(
             q, k, v, causal, scale, m), [()], 2),
         library_ms=time_ms(lambda: sdpa(q, k, v, scale=scale), [()], 3),
         bound_ms=bnd[0], bound_by=bnd[1])
+    # the SIMT kernel on the same inputs, the route this shape took before
+    # the tensor-core kernel (CUDA events: 13 ms calls, no launch cost)
+    simt = {"ms": time_ms(lambda: A.flash_fwd_launch(
+        "simt", q, k, v, causal, scale, m), [()], 2),
+        "plain_ms": numbers["flash_fwd_tc"]["plain_ms"],
+        "library_ms": numbers["flash_fwd_tc"]["library_ms"],
+        "bound_ms": bnd[0], "bound_by": bnd[1]}
     for key, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
         bnd = bound_ms(*attention_bwd_bound(q, k, m, causal, which),
                        torch.bfloat16)
@@ -1446,6 +1602,9 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
                             bound_by=bnd[1])
     del q, k, v, do, ql, kl, vl, lib_o
     torch.cuda.empty_cache()
+    log(f"[T3] flash_fwd (SIMT) at the path's shape, same inputs: "
+        f"{simt['ms']:.3f} ms (CUDA events) against the tensor-core "
+        f"kernel's {numbers['flash_fwd_tc']['ms']:.3f} ms (device)")
 
     # the fused update on the transformer_long parameters, float32
     tree = {key: p.detach().clone() for key, p in param_tree(model32).items()}
@@ -1481,6 +1640,7 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
             f"{r['plain_ms']:.3f} ms, {lib} (CUDA events); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
             f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the kernel's time")
+    numbers["flash_fwd"] = simt
     return step_rec, numbers
 
 
@@ -1922,8 +2082,10 @@ def phase_resnet_bench(dev, seed):
             losses.append(loss.item())
         set_resnet_knobs(pool=True)
         wall = walls[True]
-        busy, kernels, prof_ms = profiled(step,
-                                          f"the ResNet-50 step ({label})")
+        busy, kernels, prof_ms = profiled(
+            step, f"the ResNet-50 step ({label})",
+            expect={R_SYMBOLS[k]: R_PER_STEP[k]
+                    for k in ("pool_fwd", "pool_bwd")})
         step_ms = sum(wall) / len(wall)
         if not all(math.isfinite(v) for v in losses):
             fail("R3", f"{label}: non-finite loss {losses}")
@@ -2515,8 +2677,8 @@ L_TIMED = [("kernel_bench", 32768, 1024, torch.bfloat16, 1e-5),
 LN_FLOPS_PER_ELEMENT = 8          # the kernel's float32 operations
 
 B1_BATCH, B_LEN, B_STEPS, B_TIMED = 8, 128, 3, 10
-B_KEYS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layer_norm",
-          "fused_update")
+B_KEYS = ("flash_fwd", "flash_fwd_tc", "flash_fwd_simt", "flash_bwd_dq",
+          "flash_bwd_dkv", "layer_norm", "fused_update")
 B_SYMBOLS = dict(KERNEL_SYMBOLS, layer_norm="layer_norm_kernel")
 
 
@@ -2659,7 +2821,8 @@ def phase_layer_norm_numbers(dev, seed):
         args = [(x, s, b, eps) for x in xs]
         busy, kernels, _ = profiled(
             lambda: [LN.layer_norm_cuda(*args[i % sets])
-                     for i in range(L_ITERS)], f"layer_norm {case}")
+                     for i in range(L_ITERS)], f"layer_norm {case}",
+            expect={"layer_norm_kernel": L_ITERS})
         rows = [r for r in kernels if "layer_norm_kernel" in r[0]]
         if not rows or sum(r[1] for r in rows) != L_ITERS:
             fail("L2", f"the profile of {case} shows {rows}")
@@ -2696,13 +2859,14 @@ def zero_b_counts():
     LN.fused_layer_norm.launches = 0
 
 
-def b_expect(use_pallas):
-    """Launches of one BERT step: 12 flash forward, dQ and dK/dV with
+def b_expect(use_pallas, dtype):
+    """Launches of one BERT step: 12 flash forward (on the tensor cores in
+    bf16, on the SIMT kernel in float32), dQ and dK/dV with
     ``use_pallas``; no row-norm launch (the LayerNorms see [B, T, H]) and
     no fused update (the step is unfused); none without."""
     per = 12 if use_pallas else 0
-    return {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
-            "layer_norm": 0, "fused_update": 0}
+    return {**fwd_counts(per, dtype), "flash_bwd_dq": per,
+            "flash_bwd_dkv": per, "layer_norm": 0, "fused_update": 0}
 
 
 def bert_batch(batch, vocab, dev, seed):
@@ -2821,7 +2985,7 @@ def phase_bert_train(dev, seed):
             key = name + "_perm" if reorder else name
             runs[key] = r = b1_run(models[up], init, data, plain, reorder,
                                    seed)
-            want = b_expect(up and not plain)
+            want = b_expect(up and not plain, torch.float32)
             log(f"[B1] {key:<12} losses "
                 f"{', '.join(f'{v:.7f}' for v in r['losses'])}; launches a "
                 f"step {r['counts'][0]}")
@@ -2906,7 +3070,7 @@ def phase_bert_bench(dev, seed):
             wall.append((time.perf_counter() - t0) * 1e3)
             counts.append(b_counts())
             losses.append(loss.item())
-        want = b_expect(up)
+        want = b_expect(up, torch.bfloat16)
         if any(c != want for c in counts) or \
                 not all(math.isfinite(v) for v in losses):
             fail("B2", f"{label}: launches {counts}, expected {want} a "
@@ -2932,7 +3096,11 @@ def phase_bert_bench(dev, seed):
             update.append((time.perf_counter() - t1) * 1e3)
         rec.update(fwd_bwd_ms=sum(fwd_bwd) / 3, update_ms=sum(update) / 3)
         del grads
-        busy, kernels, prof_ms = profiled(step, f"the BERT step ({label})")
+        busy, kernels, prof_ms = profiled(
+            step, f"the BERT step ({label})",
+            expect={B_SYMBOLS[k]: 12 for k in ("flash_fwd_tc", "flash_bwd_dq",
+                                               "flash_bwd_dkv")} if up
+            else None)
         if busy <= 0:
             fail("B2", f"the profiled {label} step recorded no device time")
         rec.update(device_busy_ms=busy, profiled_wall_ms=prof_ms,
@@ -2941,7 +3109,7 @@ def phase_bert_bench(dev, seed):
                                 for n, c, t in kernels[:15]])
         if up:
             rec["kernels_in_step"] = {}
-            for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            for key in ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv"):
                 rows = [r for r in kernels if B_SYMBOLS[key] in r[0]]
                 n = sum(r[1] for r in rows)
                 if n != 12:
@@ -2981,7 +3149,6 @@ def main(argv=None):
                          "the port on the card and has no CPU fallback")
     import paddle_tpu_torch  # noqa: F401  (sets float32 matmuls to strict)
     from paddle_tpu_torch.core.device import card_name_and_power
-    from paddle_tpu_torch.kernels.attention import flash_attention
 
     dev = torch.device("cuda")
     card = card_name_and_power()
@@ -3008,7 +3175,7 @@ def main(argv=None):
     report["kernels"], worst = phase_kernels(dev, args.seed)
     model_bf16 = full_width_model(torch.bfloat16, dev, args.seed)
     report["serving"] = phase_serving(model_bf16, dev, args.seed)
-    serving_launches = flash_attention.launches
+    serving_launches = report["serving"]["launches_by_route"]
     report["e2e"] = phase_e2e(model_bf16, dev, args.seed)
     report["numbers"] = phase_numbers(dev, args.seed)
     report["generate"] = [
@@ -3022,7 +3189,8 @@ def main(argv=None):
     model32 = long_model(torch.float32, dev, args.seed)
     report["update_kernel"], worst["fused_update"] = phase_update_kernel(
         param_tree(model32), dev, args.seed)
-    worst["flash_fwd"] = max(worst["flash_fwd"], train_worst.pop("flash_fwd"))
+    worst["flash_fwd_tc"] = max(worst["flash_fwd_tc"],
+                                train_worst.pop("flash_fwd_tc"))
     worst.update(train_worst)
     report["train"], model_bf, batch = phase_train(model32, dev, args.seed)
     report["train_step"], train_numbers = phase_train_numbers(
@@ -3030,10 +3198,17 @@ def main(argv=None):
     report["train_numbers"] = train_numbers
     report["seconds"] = time.perf_counter() - t_start
 
+    # the forward kernels by route: the serving path's, the training
+    # path's (float32 on the SIMT kernel, bf16 on the tensor cores) and the
+    # BERT bench step's
     launches = dict(report["train"]["launches"])
-    launches["flash_fwd"] += serving_launches
-    bert_launches = report["bert_bench"]["use_pallas"]["launches"]
-    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    launches["flash_fwd"] = launches.pop("flash_fwd_simt") + \
+        serving_launches["simt"]
+    launches["flash_fwd_tc"] += serving_launches["tc"]
+    bert_launches = dict(report["bert_bench"]["use_pallas"]["launches"])
+    bert_launches["flash_fwd"] = bert_launches.pop("flash_fwd_simt")
+    for key in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq",
+                "flash_bwd_dkv"):
         launches[key] += bert_launches[key]
     launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
@@ -3051,30 +3226,39 @@ def main(argv=None):
         if in_step["count"] != R_PER_STEP[key]:
             fail("R4", f"the profiled step shows {in_step['count']} {key}")
         pool_numbers[key]["ms"] = in_step["device_ms"] / in_step["count"]
-    # flash_fwd's times are the serving decoder shape's (12 of every 12
-    # launches per decode step); its other shapes, the training one
-    # included, are in "shapes"
+    # flash_fwd (SIMT): the serving decoder shape's times (12 of every 12
+    # launches per decode step); flash_fwd_tc: the training shape's (12
+    # launches a step). Their other shapes are in "shapes", each with the
+    # other route's time at the same inputs where it was measured.
     main = next(r for r in report["numbers"]
                 if r["case"] == "decoder_self" and r["dtype"] == "bfloat16")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = ("case", "dtype", "shape", "route", "ms", "simt_ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms")
     kernels_line = []
     for name, meta in KERNELS.items():
         rec = {"name": name, **meta, "launches": launches[name],
                "max_abs_err": worst[name]}
-        if name == "flash_fwd":
-            rec.update({k: main[k] for k in keys})
+        if name in ("flash_fwd", "flash_fwd_tc"):
+            route = "tc" if name == "flash_fwd_tc" else "simt"
+            if route == "simt":
+                rec.update({k: main[k] for k in keys})
+            else:
+                rec.update({k: train_numbers[name][k] for k in keys})
             rec["launches_by_path"] = {
-                "serving": serving_launches,
-                "training": report["train"]["launches"]["flash_fwd"],
-                "bert": bert_launches["flash_fwd"]}
-            rec["shapes"] = [
-                {k: r[k] for k in ("case", "dtype", "shape", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms",
-                                   "call_ms")}
-                for r in report["numbers"]] + [
-                dict({k: train_numbers[name][k] for k in keys},
-                     case="train", dtype="bfloat16",
-                     shape=list(TRAIN_FLASH[1:6]))]
+                "serving": serving_launches[route],
+                "training": report["train"]["launches"][
+                    "flash_fwd_tc" if route == "tc" else "flash_fwd_simt"],
+                "bert": bert_launches[name]}
+            train = dict({k: train_numbers[name][k] for k in keys},
+                         case="train", dtype="bfloat16",
+                         shape=list(TRAIN_FLASH[1:6]), route="simt")
+            if route == "tc":
+                train.update(route="tc",
+                             simt_ms=train_numbers["flash_fwd"]["ms"])
+            rec["shapes"] = [{k: r.get(k) for k in shape_keys}
+                             for r in report["numbers"]
+                             if r["route"] == route] + [train]
         elif name in RESNET_KERNELS:
             rec.update({k: report["resnet_numbers"][name][k] for k in keys})
         elif name in pool_numbers:
@@ -3087,6 +3271,8 @@ def main(argv=None):
                         for k in keys})
         else:
             rec.update(train_numbers[name])
+        if not rec["launches"]:
+            fail("main", f"{name} was launched no time on its main paths")
         kernels_line.append(rec)
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

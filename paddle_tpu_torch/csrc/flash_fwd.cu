@@ -41,13 +41,15 @@
 // whole K/V cache of every (batch, head) once per token and layer and does
 // 4*D flops per key, far below the ~295 flops per byte where the tensor
 // cores would be the limit: it is bound by memory bandwidth, and its
-// figure of merit is bytes moved over 3.35 TB/s. At the encoder shape
-// (Tq = Tk = 64, D = 64, B*H = 512) the work is a few hundred MFLOP and a
-// few MB, so the launch and the latency of the tile loop bound it. The
-// design spends no effort on the tensor cores for that reason.
+// figure of merit is bytes moved over 3.35 TB/s. The design spends no
+// effort on the tensor cores for that reason. bf16 calls with D a
+// multiple of 16 and Tq >= 16 (the encoder, prefill, BERT and the training
+// slice's forward) take csrc/flash_fwd_tc.cu, the tensor-core kernel,
+// instead (kernels/attention.py's fwd_route); this one keeps float32
+// (whose 1e-5 gates the tensor cores' input types cannot meet), decode
+// and other head dims.
 //
-// Left for later work: wgmma with TMA-fed K/V tiles for Tq > 1 (prefill
-// and the training slice's forward), split-K over the key axis for the
+// Left for later work: split-K over the key axis for the
 // Tq = 1 decode shape (one row per (bh) leaves three of the block's four
 // warps idle while it computes, and most SMs idle at small batch), keeping
 // K/V in bf16 in shared memory, and skipping K/V tiles that are fully

@@ -4,11 +4,16 @@
 ``flash_attention`` keeps the JAX function's ``[B, H, T, D]`` signature and
 its routing condition (``paddle_tpu/kernels/attention.py:40``): the kernel
 runs when ``not causal or tq == tk``; otherwise the plain version runs, as
-the XLA scan path does in the JAX package. On a CUDA tensor the kernel is
-``csrc/flash_fwd.cu`` (it replaces the Pallas ``_flash_fwd_kernel``); a
-failed build or launch raises, nothing falls back. On a CPU tensor the
-plain version runs. Like every entry point of the port it takes
-``device``, default ``"cuda"``, which must match the tensors.
+the XLA scan path does in the JAX package. On a CUDA tensor the forward is
+one of two hand-written kernels, both counterparts of the Pallas
+``_flash_fwd_kernel``, chosen by the pure rule ``fwd_route``:
+``csrc/flash_fwd_tc.cu`` (wgmma on the tensor cores) for bf16 with D a
+multiple of 16 up to 128, Tq >= 16 and 16-byte aligned operands, and
+``csrc/flash_fwd.cu`` (float32 SIMT) for the rest: float32, decode (Tq =
+1) and other head dims. A failed build or launch of either raises; neither
+gives way to the other or to the plain version. On a CPU tensor the plain
+version runs. Like every entry point of the port it takes ``device``,
+default ``"cuda"``, which must match the tensors.
 
 When autograd records (an input requires grad) the call goes through the
 dispatcher op ``paddle_tpu_torch::flash_attn``, the counterpart of
@@ -81,6 +86,18 @@ def _lib():
     return lib
 
 
+def _tc_lib():
+    from paddle_tpu_torch.core import native_build
+    lib = native_build.load("flash_fwd_tc")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_fwd_tc.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i,
+                                                         p]
+        lib.flash_fwd_tc.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
 def _check_inputs(q, k, v, kv_mask, extra=()):
     """Raise on what the kernels do not take; returns the mask pointer (or
     None). q ``[B, H, Tq, D]``, k/v ``[B, H, Tk, D]``: contiguous CUDA
@@ -127,27 +144,68 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_fwd_cuda(q, k, v, causal, scale, kv_mask=None):
-    """Launch ``csrc/flash_fwd.cu``. q ``[B, H, Tq, D]``, k/v
-    ``[B, H, Tk, D]``, contiguous CUDA tensors of one dtype (float32 or
-    bfloat16), D <= 128; kv_mask ``[B, Tk]`` bool/uint8, contiguous.
-    Returns (o, lse) as the plain version does. Raises on what the kernel
-    does not take and on a launch error."""
+def fwd_route(dtype, tq, d, aligned):
+    """The forward kernel a CUDA call takes, by a fixed rule: ``"tc"``
+    (``csrc/flash_fwd_tc.cu``, wgmma) for bfloat16 with D a multiple of 16
+    up to 128, Tq >= 16 and q/k/v at 16-byte aligned bases (``aligned``; o,
+    which the wrapper allocates, always is); ``"simt"``
+    (``csrc/flash_fwd.cu``) for everything else: float32, whose
+    1e-5 gates no tensor-core input type meets; decode (Tq = 1), where the
+    SIMT kernel is load-bound; other head dims."""
+    if (dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM
+            and tq >= 16 and aligned):
+        return "tc"
+    return "simt"
+
+
+def flash_fwd_launch(route, q, k, v, causal, scale, kv_mask=None):
+    """Launch the forward kernel of ``route`` (``"tc"`` or ``"simt"``) on
+    the inputs ``flash_fwd_cuda`` takes; count nothing. Returns (o, lse).
+    Raises on what the kernel does not take and on a launch error (the C
+    entry of each kernel refuses what it cannot compute)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     mask_ptr = _check_inputs(q, k, v, kv_mask)
-    lib = _lib()
+    if route == "tc" and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_fwd_tc takes bfloat16, not {q.dtype}")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, o.data_ptr(),
+            lse.data_ptr(), b * h, h, tq, tk, d, float(scale), int(causal))
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            mask_ptr, o.data_ptr(), lse.data_ptr(),
-                            b * h, h, tq, tk, d, float(scale), int(causal),
-                            _DTYPE_CODES[q.dtype], _stream(q))
+        if route == "tc":
+            err = _tc_lib().flash_fwd_tc(*args, _stream(q))
+        elif route == "simt":
+            err = _lib().flash_fwd(*args, _DTYPE_CODES[q.dtype], _stream(q))
+        else:
+            raise ValueError(f"no forward route {route!r}")
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
-    flash_attention.launches += 1
+        name = "flash_fwd_tc" if route == "tc" else "flash_fwd"
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     return o, lse
+
+
+def flash_fwd_cuda(q, k, v, causal, scale, kv_mask=None):
+    """Launch the forward kernel that ``fwd_route`` picks for these
+    tensors. q ``[B, H, Tq, D]``, k/v ``[B, H, Tk, D]``, contiguous CUDA
+    tensors of one dtype (float32 or bfloat16), D <= 128; kv_mask
+    ``[B, Tk]`` bool/uint8, contiguous. Returns (o, lse) as the plain
+    version does and counts the launch in ``flash_attention.launches`` and
+    in ``flash_fwd_cuda.tc_launches`` or ``.simt_launches``. Raises on what
+    the kernel does not take and on a launch error."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    route = fwd_route(q.dtype, q.shape[2], q.shape[3], aligned)
+    o, lse = flash_fwd_launch(route, q, k, v, causal, scale, kv_mask)
+    flash_attention.launches += 1
+    if route == "tc":
+        flash_fwd_cuda.tc_launches += 1
+    else:
+        flash_fwd_cuda.simt_launches += 1
+    return o, lse
+
+
+flash_fwd_cuda.tc_launches = 0
+flash_fwd_cuda.simt_launches = 0
 
 
 # -- backward ---------------------------------------------------------------

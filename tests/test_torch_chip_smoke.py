@@ -103,8 +103,8 @@ def test_training_phase_shapes_are_transformer_long():
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
     assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "flash_bwd",
-                                  "flash_fwd", "fused_update", "layer_norm",
-                                  "pool_fused", "seqpool"]
+                                  "flash_fwd", "flash_fwd_tc", "fused_update",
+                                  "layer_norm", "pool_fused", "seqpool"]
 
 
 def test_permuted_keys_is_the_same_attention():
@@ -163,7 +163,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 12
+    assert len(chip_smoke.KERNELS) == 13
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [
@@ -217,11 +217,17 @@ def test_layer_norm_gate_allows_one_ulp_and_no_more(dtype, mant):
 
 
 def test_bert_launches_a_step():
-    assert chip_smoke.b_expect(True) == {
-        "flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-        "layer_norm": 0, "fused_update": 0}
-    assert set(chip_smoke.b_expect(False).values()) == {0}
-    assert set(chip_smoke.b_expect(False)) == set(chip_smoke.B_KEYS)
+    assert chip_smoke.b_expect(True, torch.bfloat16) == {
+        "flash_fwd": 12, "flash_fwd_tc": 12, "flash_fwd_simt": 0,
+        "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "layer_norm": 0,
+        "fused_update": 0}
+    assert chip_smoke.b_expect(True, torch.float32) == dict(
+        chip_smoke.b_expect(True, torch.bfloat16), flash_fwd_tc=0,
+        flash_fwd_simt=12)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert set(chip_smoke.b_expect(False, dtype).values()) == {0}
+        assert set(chip_smoke.b_expect(False, dtype)) == set(
+            chip_smoke.B_KEYS)
 
 
 def test_bert_batch_pads_no_row_entirely():
@@ -263,3 +269,116 @@ def test_permuted_keys_covers_every_route(use_flash, causal_mask):
         not torch.equal(out[0][1], out[1][1])
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# every forward shape the script checks, with the route it must see
+_FWD_SHAPES = chip_smoke.CHECK_SHAPES + chip_smoke.BWD_CHECK_SHAPES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", _FWD_SHAPES,
+                         ids=[f"{s[0]}_{i}" for i, s in
+                              enumerate(_FWD_SHAPES)])
+def test_expected_route_is_the_ports_rule(shape, dtype):
+    """The route the script asserts, written out, is the one the port's
+    ``fwd_route`` picks for contiguous, aligned inputs: the tensor cores
+    for bf16 at D % 16 == 0 and Tq >= 16, the SIMT kernel for float32,
+    decode and D = 100."""
+    from paddle_tpu_torch.kernels.attention import fwd_route
+    _, _, _, tq, _, d, _, _ = shape
+    want = chip_smoke.expect_route(dtype, tq, d)
+    assert fwd_route(dtype, tq, d, True) == want
+    assert want == ("simt" if dtype == torch.float32 or tq == 1 or d == 100
+                    else "tc")
+
+
+def test_check_shapes_cover_both_routes_and_the_new_cases():
+    names = {s[0]: s for s in chip_smoke.CHECK_SHAPES}
+    assert names["d128"][5] == 128 and names["d128"][7] == "padding"
+    _, _, _, tq, tk, _, causal, mask = names["causal_512"]
+    assert (tq, tk, causal, mask) == (512, 512, True, None)
+    routes = {chip_smoke.expect_route(torch.bfloat16, s[3], s[5])
+              for s in chip_smoke.CHECK_SHAPES}
+    assert routes == {"tc", "simt"}
+    assert chip_smoke.KERNELS["flash_fwd_tc"]["replaces"] == \
+        chip_smoke.KERNELS["flash_fwd"]["replaces"]
+    assert chip_smoke.KERNEL_SYMBOLS["flash_fwd_tc"] not in \
+        chip_smoke.KERNEL_SYMBOLS["flash_fwd"]
+    assert chip_smoke.KERNEL_SYMBOLS["flash_fwd"] not in \
+        chip_smoke.KERNEL_SYMBOLS["flash_fwd_tc"]
+    assert chip_smoke.T3_KERNELS[0] == "flash_fwd_tc"
+
+
+def test_fwd_counts_split_the_forward_by_route():
+    assert chip_smoke.fwd_counts(12, torch.bfloat16) == {
+        "flash_fwd": 12, "flash_fwd_tc": 12, "flash_fwd_simt": 0}
+    assert chip_smoke.fwd_counts(24, torch.float32) == {
+        "flash_fwd": 24, "flash_fwd_tc": 0, "flash_fwd_simt": 24}
+
+
+class _FakeEvent:
+    def __init__(self, key, count, device_us):
+        from torch.autograd import DeviceType
+        self.key, self.count = key, count
+        self.self_device_time_total = device_us
+        self.device_type = DeviceType.CUDA
+
+
+@pytest.mark.parametrize("counts,sessions,last", [
+    ([50], 1, 50),                   # the first session counts them all
+    ([49, 50], 2, 50),               # a record dropped: profiled again
+    ([49, 48, 49], 3, 49),           # never whole: the last is returned
+])
+def test_profiled_sessions_until_the_counts_agree(monkeypatch, counts,
+                                                  sessions, last):
+    import torch.profiler as tp
+    seen = []
+
+    class _Profile:
+        def __init__(self, activities):
+            self.n = counts[len(seen)]
+            seen.append(self.n)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [_FakeEvent("void layer_norm_kernel<float, 4, 8>",
+                               self.n, 94.0 * self.n),
+                    _FakeEvent("elementwise", 3, 1.0)]
+
+    monkeypatch.setattr(tp, "profile", _Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    busy, rows, _ = chip_smoke.profiled(
+        lambda: calls.append(1), "test",
+        expect={"layer_norm_kernel": 50})
+    assert seen == counts[:sessions] and len(calls) == sessions
+    assert rows[0][1] == last and busy == pytest.approx(94e-3 * last + 1e-3)
+
+
+def test_profiled_without_expect_runs_one_session(monkeypatch):
+    import torch.profiler as tp
+    sessions = []
+
+    class _Profile:
+        def __init__(self, activities):
+            sessions.append(1)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(tp, "profile", _Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    busy, rows, _ = chip_smoke.profiled(lambda: None, "test")
+    assert sessions == [1] and busy == 0 and rows == []

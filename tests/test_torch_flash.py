@@ -130,3 +130,39 @@ def test_sdpa_flash_route_matches_plain_route(mask_kind):
     plain = scaled_dot_product_attention(_t(q), _t(k), _t(v), mask,
                                          use_flash=False)
     np.testing.assert_allclose(flash.numpy(), plain.numpy(), **TOL)
+
+
+# (dtype, tq, d, aligned, route): the forward kernel a CUDA call takes
+ROUTES = [
+    (torch.bfloat16, 64, 64, True, "tc"),       # serving encoder, BERT
+    (torch.bfloat16, 4096, 64, True, "tc"),     # transformer_long
+    (torch.bfloat16, 16, 16, True, "tc"),       # smallest tc tile
+    (torch.bfloat16, 256, 128, True, "tc"),     # D = 128: two column blocks
+    (torch.bfloat16, 40, 48, True, "tc"),       # D padded to 64
+    (torch.bfloat16, 15, 64, True, "simt"),     # Tq under 16
+    (torch.bfloat16, 1, 64, True, "simt"),      # decode
+    (torch.bfloat16, 64, 100, True, "simt"),    # D not a multiple of 16
+    (torch.bfloat16, 64, 8, True, "simt"),      # D under 16
+    (torch.bfloat16, 64, 144, True, "simt"),    # D over 128
+    (torch.bfloat16, 64, 64, False, "simt"),    # a base off 16 bytes
+    (torch.float32, 64, 64, True, "simt"),      # float32: 1e-5 gates
+    (torch.float32, 4096, 128, True, "simt"),
+    (torch.float16, 64, 64, True, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,tq,d,aligned,route", ROUTES,
+                         ids=[f"{str(r[0])[6:]}_tq{r[1]}_d{r[2]}_"
+                              f"{'al' if r[3] else 'unal'}" for r in ROUTES])
+def test_fwd_route_is_a_fixed_rule(dtype, tq, d, aligned, route):
+    assert port.fwd_route(dtype, tq, d, aligned) == route
+
+
+def test_cpu_wrapper_counts_no_route_launch():
+    tc, simt = (port.flash_fwd_cuda.tc_launches,
+                port.flash_fwd_cuda.simt_launches)
+    q, k, v, m = _inputs(2, 2, 16, 16, 16, masked=True)
+    port.flash_attention(_t(q).bfloat16(), _t(k).bfloat16(),
+                         _t(v).bfloat16(), kv_mask=_t(m), device="cpu")
+    assert (port.flash_fwd_cuda.tc_launches,
+            port.flash_fwd_cuda.simt_launches) == (tc, simt)

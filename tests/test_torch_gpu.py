@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
-forward and backward, the fused optimizer update, the conv kernels, the
-fused max pool, the embedding seqpool and the row LayerNorm against their
-plain versions, and the kernel launches of a tiny BERT step.
+forward (both routes, the SIMT kernel and the tensor-core kernel, and the
+rule that picks one) and backward, the fused optimizer update, the conv
+kernels, the fused max pool, the embedding seqpool and the row LayerNorm
+against their plain versions, and the kernel launches of a tiny BERT
+step.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a GPU machine without JAX:
@@ -93,6 +95,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         port.flash_fwd_cuda(q.half(), q.half(), q.half(), False, 1.0)
     with pytest.raises(ValueError):      # a CUDA tensor, device="cpu"
         port.flash_attention(q, q, q, device="cpu")
+
+
+# -- the tensor-core forward (csrc/flash_fwd_tc.cu) ---------------------------
+
+# (name, b, h, tq, tk, d, causal, masked): BERT-base's and the serving
+# encoder's shapes with padding (row 0 all masked), causal without a mask
+# (the tile skip), a ragged Tk and Tq, and D = 128
+TC_SHAPES = [
+    ("bert", 32, 12, 128, 128, 64, False, True),
+    ("encoder", 64, 8, 64, 64, 64, False, True),
+    ("causal_512", 2, 8, 512, 512, 64, True, False),
+    ("causal_masked", 2, 3, 100, 100, 32, True, True),
+    ("ragged_tk", 3, 4, 200, 300, 64, False, True),
+    ("d128", 2, 4, 256, 256, 128, False, True),
+]
+
+
+def _routes():
+    return port.flash_fwd_cuda.tc_launches, port.flash_fwd_cuda.simt_launches
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=[s[0] for s in TC_SHAPES])
+def test_tc_route_matches_plain_version(cuda, shape):
+    _, b, h, tq, tk, d, causal, masked = shape
+    q, k, v, m = _inputs(cuda, torch.bfloat16, b, h, tq, tk, d, masked)
+    tc, simt = _routes()
+    o, lse = port.flash_fwd_cuda(q, k, v, causal, d ** -0.5, m)
+    torch.cuda.synchronize()
+    assert _routes() == (tc + 1, simt)
+    ro, rl = port.flash_attention_reference(q, k, v, causal, d ** -0.5, m)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    err = ((o.float() - ro.float()).abs() / (1 + ro.float().abs())).max()
+    assert err.item() < 1e-2
+    rel = ((lse - rl).abs() / rl.abs().clamp(min=1)).max()
+    assert rel.item() < 1e-5
+    if masked:   # the fully masked row: uniform mean of V, lse ~ -1e30
+        np.testing.assert_allclose(
+            o[0].float().cpu().numpy(),
+            v[0].float().mean(dim=1, keepdim=True).expand_as(o[0])
+            .to(torch.bfloat16).float().cpu().numpy(), rtol=1e-2, atol=1e-5)
+        assert (lse[0] < -1e29).all()
+
+
+def test_route_counters_follow_the_rule(cuda):
+    """bf16 at D % 16 == 0 and Tq >= 16 on aligned inputs takes the tensor
+    cores; float32, decode, D = 100 and a base off 16 bytes the SIMT
+    kernel. Every launch also counts in ``flash_attention.launches``."""
+    bf = torch.bfloat16
+    buf = torch.randn(1 + 2 * 1 * 32 * 64, device=cuda).to(bf)
+    off = buf[1:].view(2, 1, 32, 64)           # 2 bytes past an aligned base
+    cases = [
+        (_inputs(cuda, bf, 2, 2, 16, 16, 64, False), "tc"),
+        (_inputs(cuda, torch.float32, 2, 2, 64, 64, 64, False), "simt"),
+        (_inputs(cuda, bf, 2, 2, 1, 64, 64, True), "simt"),
+        (_inputs(cuda, bf, 2, 2, 32, 32, 100, False), "simt"),
+        ((off, off, off, None), "simt"),
+    ]
+    for (q, k, v, m), route in cases:
+        tc, simt = _routes()
+        n = port.flash_attention.launches
+        o, lse = port.flash_fwd_cuda(q, k, v, False, 0.125, m)
+        torch.cuda.synchronize()
+        assert _routes() == ((tc + 1, simt) if route == "tc"
+                             else (tc, simt + 1)), (q.shape, q.dtype)
+        assert port.flash_attention.launches == n + 1
+        ro, rl = port.flash_attention_reference(q, k, v, False, 0.125, m)
+        tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+        assert ((o.float() - ro.float()).abs()
+                / (1 + ro.float().abs())).max().item() < tol
+
+
+def test_tc_launch_raises_and_never_falls_back(cuda):
+    """The tensor-core kernel's C entry refuses what it cannot compute (a
+    base off 16 bytes, D not a multiple of 16) and its wrapper what is not
+    bf16: the launch raises, and no other kernel or plain version runs in
+    its place."""
+    bf = torch.bfloat16
+    buf = torch.randn(1 + 32 * 64, device=cuda).to(bf)
+    off = buf[1:].view(1, 1, 32, 64)
+    q8 = torch.randn(1, 1, 32, 8, device=cuda).to(bf)
+    before = _routes(), port.flash_attention.launches
+    for q in (off, q8):
+        with pytest.raises(RuntimeError, match="flash_fwd_tc launch failed"):
+            port.flash_fwd_launch("tc", q, q, q, False, 0.125)
+    with pytest.raises(ValueError):
+        port.flash_fwd_launch("wgmma", q8, q8, q8, False, 0.125)
+    f32 = torch.randn(1, 1, 32, 64, device=cuda)
+    with pytest.raises(TypeError):
+        port.flash_fwd_launch("tc", f32, f32, f32, False, 0.125)
+    assert (_routes(), port.flash_attention.launches) == before
 
 
 def test_tiny_model_tokens_equal_with_and_without_kernel(cuda):
