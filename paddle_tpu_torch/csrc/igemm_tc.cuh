@@ -1,0 +1,178 @@
+// Tensor-core pieces of the conv kernels' implicit GEMM, for Hopper
+// (sm_90a): the 128-byte-swizzled tile layout that wgmma's shared-memory
+// descriptors read, the descriptors, the bf16 wgmma wrappers with both
+// operands in shared memory, and a cp.async ring of stages. conv_kxk_dw_tc.cu
+// builds on it; the SIMT core (igemm.cuh) stays beside it for float32.
+//
+// The layout: a tile is a set of 64-column blocks, each [rows][64 bf16],
+// one 128-byte row per row; the 16-byte chunk c of row r sits at
+// c ^ (r & 7). Eight rows (1024 bytes) are one swizzle atom. A tile whose
+// rows run along K and whose columns run along M (or N) is "MN-major": the
+// wgmma reads it through its transpose bit, 16 rows (one k16 step, 2048
+// bytes) at a time, with the stride byte offset one atom (1024 bytes) and
+// the leading byte offset one 64-column block.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace igemm_tc {
+
+constexpr int kRowBytes = 128;              // one row of a 64-column block
+constexpr int kAtomBytes = 8 * kRowBytes;   // one swizzle atom
+constexpr int kStepBytes = 16 * kRowBytes;  // one k16 step of an MN-major tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk `c` (0..7) of row `r` in a 64-column block.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * kRowBytes + (((c ^ r) & 7) << 4);
+}
+
+// 16 bytes global -> shared; with src_bytes 0 the destination is zeroed
+// and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Writes made through the generic proxy (cp.async, st.shared) become
+// visible to wgmma, which reads shared memory through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor of k16 step `kk` of an MN-major tile at `tile`.
+__device__ __forceinline__ uint64_t mn_major_desc(uint32_t tile, int kk) {
+  return make_desc(tile + kk * kStepBytes, 64 * kRowBytes, kAtomBytes);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both operands MN-major in
+// shared memory (both transpose bits set); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_tt_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both operands MN-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_tt_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], N = 64 or 128 by the size of `d`.
+__device__ __forceinline__ void wgmma_tt(float (&d)[32], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  wgmma_tt_n64(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_tt(float (&d)[64], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  wgmma_tt_n128(d, da, db, scale_d);
+}
+
+// A ring of STAGES equal stages of STAGE_BYTES each in dynamic shared
+// memory, its base aligned to a swizzle atom (the swizzle is a function of
+// address bits [4, 10)). Tile t lives in stage t % STAGES.
+template <int STAGES, int STAGE_BYTES>
+struct Ring {
+  // bytes to request: the stages plus room to align the base
+  static constexpr int kSmemBytes = STAGES * STAGE_BYTES + kAtomBytes;
+  uint32_t base;
+
+  __device__ __forceinline__ explicit Ring(const void* smem)
+      : base((smem_addr(smem) + kAtomBytes - 1) &
+             ~static_cast<uint32_t>(kAtomBytes - 1)) {}
+  __device__ __forceinline__ uint32_t stage(int t) const {
+    return base + (t % STAGES) * STAGE_BYTES;
+  }
+};
+
+}  // namespace igemm_tc

@@ -20,6 +20,12 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
   ``_convkxk_dw``. Each wrapper launches its kernel on CUDA tensors (and
   counts it in its ``launches``), runs its plain version on CPU tensors,
   and raises on anything the kernel does not take.
+- The weight gradient has two kernels, chosen by the pure rule
+  ``dw_route``: ``csrc/conv_kxk_dw_tc.cu`` (wgmma on the tensor cores)
+  for bf16 with C and O multiples of 64 at 16-byte aligned bases, and
+  ``conv_kxk_dw`` of ``csrc/conv_kxk.cu`` (float32 FMAs) for the rest.
+  Neither gives way to the other: ``convkxk_dw_launch`` launches the one
+  it is named, or raises.
 
 The plain versions are the same functions in PyTorch: a float32
 ``F.conv2d`` (and its gradients through autograd) on the padded input, the
@@ -123,6 +129,20 @@ def convkxk_dw_reference(g, mask, scale, x, w_shape, w_dtype, stride,
 # -- the KxK kernels -----------------------------------------------------------
 
 
+_DW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _tc_lib():
+    from paddle_tpu_torch.core import native_build
+    lib = native_build.load("conv_kxk_dw_tc")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.conv_kxk_dw_tc.argtypes = _DW_ARGTYPES
+        lib.conv_kxk_dw_tc.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
 def _lib():
     from paddle_tpu_torch.core import native_build
     lib = native_build.load("conv_kxk")
@@ -130,7 +150,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv_kxk_fwd.argtypes = [p, p, p, p, p, p, i, i, p, i, i, p]
         lib.conv_kxk_dx.argtypes = [p, p, p, i, p, p, p, i, i, p]
-        lib.conv_kxk_dw.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, p]
+        lib.conv_kxk_dw.argtypes = _DW_ARGTYPES
         for fn in (lib.conv_kxk_fwd, lib.conv_kxk_dx, lib.conv_kxk_dw):
             fn.restype = ctypes.c_int
         lib._argtypes_set = True
@@ -215,11 +235,36 @@ def convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dtype, stride, padding,
     return dx
 
 
-def convkxk_dw_cuda(g, mask, scale, x, w_shape, w_dtype, stride, padding,
-                    dilation):
-    """Launch ``conv_kxk_dw``: x NHWC, g (and ``mask``) [N, OH, OW, O] in
-    x's dtype. Returns dw OIHW in ``w_dtype``; a long N*OH*OW is split over
-    blocks (float32 workspace, reduced in order)."""
+def dw_route(dtype, c, o, aligned):
+    """The weight-gradient kernel a CUDA call takes, by a fixed rule:
+    ``"tc"`` (``csrc/conv_kxk_dw_tc.cu``, wgmma) for bfloat16 operands
+    (``dtype``: that of x, g and the saved output, None when they differ)
+    with C and O multiples of 64 and x, g and the saved output at 16-byte
+    aligned bases (``aligned``); ``"simt"`` (``conv_kxk_dw`` of
+    ``csrc/conv_kxk.cu``) for everything else: float32, whose 1e-4 gate
+    no tensor-core input type meets, and other channel counts."""
+    if dtype == torch.bfloat16 and c % 64 == 0 and o % 64 == 0 and aligned:
+        return "tc"
+    return "simt"
+
+
+def _cover_k(k, splits, step):
+    """(splits, k per split) for ``splits`` asked-for splits of k in
+    multiples of ``step``."""
+    per = -(-k // splits)
+    per = -(-per // step) * step
+    return -(-k // per), per
+
+
+def convkxk_dw_launch(route, g, mask, scale, x, w_shape, w_dtype, stride,
+                      padding, dilation, splits=None):
+    """Launch the weight-gradient kernel of ``route`` (``"tc"`` or
+    ``"simt"``) on the inputs ``convkxk_dw_cuda`` takes; count nothing.
+    ``splits`` forces the number of K splits (default: the route's rule,
+    ``tiles.split_k_tc`` or ``tiles.split_k``). Returns dw OIHW in
+    ``w_dtype``. Raises on what the kernel does not take and on a launch
+    error: the tensor-core kernel's C entry refuses (and computes nothing
+    for) channels that are not multiples of 64 and misaligned bases."""
     dev = x.device
     geo = geometry(x.shape, w_shape, stride, padding, dilation)
     n, h, wd, c, o, kh, kw, oh, ow = geo[:9]
@@ -229,20 +274,64 @@ def convkxk_dw_cuda(g, mask, scale, x, w_shape, w_dtype, stride, padding,
                          f"{(n, oh, ow, o)} {x.dtype}")
     _fold_checks(g, mask, scale, dev, o)
     m, k = kh * kw * c, n * oh * ow
-    splits, per = tiles.split_k(m, o, k, dev)
+    if route == "tc":
+        if x.dtype != torch.bfloat16 or (mask is not None and
+                                         mask.dtype != torch.bfloat16):
+            raise TypeError(f"conv_kxk_dw_tc takes bfloat16, not {x.dtype}"
+                            + ("" if mask is None else
+                               f" with a {mask.dtype} mask"))
+        name, fn = "conv_kxk_dw_tc", _tc_lib().conv_kxk_dw_tc
+        if splits is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            splits, per = tiles.split_k_tc(m, o, k, sms)
+        else:
+            splits, per = _cover_k(k, splits, tiles.TC_TILE_K)
+    elif route == "simt":
+        name, fn = "conv_kxk_dw", _lib().conv_kxk_dw
+        if splits is None:
+            splits, per = tiles.split_k(m, o, k, dev)
+        else:
+            splits, per = _cover_k(k, splits, tiles.TILE_K)
+    else:
+        raise ValueError(f"no weight-gradient route {route!r}")
     ws = (torch.empty((splits, m, o), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     out = torch.empty((kh, kw, c, o), dtype=w_dtype, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().conv_kxk_dw(
-            x.data_ptr(), g.data_ptr(), ptr(mask), ptr(scale),
-            DTYPE_CODES[mask.dtype] if mask is not None else 0,
-            out.data_ptr(), ptr(ws), _geo_arg(geo), DTYPE_CODES[x.dtype],
-            DTYPE_CODES[w_dtype], splits, per,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "conv_kxk_dw")
-    convkxk_dw.launches += 1
+        err = fn(x.data_ptr(), g.data_ptr(), ptr(mask), ptr(scale),
+                 DTYPE_CODES[mask.dtype] if mask is not None else 0,
+                 out.data_ptr(), ptr(ws), _geo_arg(geo), DTYPE_CODES[x.dtype],
+                 DTYPE_CODES[w_dtype], splits, per,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
     return out.permute(3, 2, 0, 1)                   # OIHW
+
+
+def convkxk_dw_cuda(g, mask, scale, x, w_shape, w_dtype, stride, padding,
+                    dilation):
+    """Launch the weight-gradient kernel that ``dw_route`` picks: x NHWC,
+    g (and the saved output ``mask``) [N, OH, OW, O] in x's dtype, scale
+    float32 [O] or None. Returns dw OIHW in ``w_dtype``; a long N*OH*OW is
+    split over blocks (float32 workspace, reduced in order). Counts the
+    launch in ``convkxk_dw.launches`` and in ``convkxk_dw_cuda.tc_launches``
+    or ``.simt_launches``. Raises on what the kernel does not take and on
+    a launch error."""
+    operands = (x, g) if mask is None else (x, g, mask)
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    dtype = x.dtype if all(t.dtype == x.dtype for t in operands) else None
+    route = dw_route(dtype, x.shape[-1], w_shape[0], aligned)
+    out = convkxk_dw_launch(route, g, mask, scale, x, w_shape, w_dtype,
+                            stride, padding, dilation)
+    convkxk_dw.launches += 1
+    if route == "tc":
+        convkxk_dw_cuda.tc_launches += 1
+    else:
+        convkxk_dw_cuda.simt_launches += 1
+    return out
+
+
+convkxk_dw_cuda.tc_launches = 0
+convkxk_dw_cuda.simt_launches = 0
 
 
 def convkxk(x, w, scale=None, bias=None, residual=None, relu=False,

@@ -15,7 +15,9 @@ kernel at ``tiles.py:359``) and counts one launch in ``brgemm.launches``;
 a failed build or launch raises, nothing falls back. On CPU tensors the
 plain version ``brgemm_reference`` runs. The JAX function's autotuner memo
 (``tiles.autotune``) is not ported: the CUDA kernel has one tile shape and
-``split_k`` spreads a long K over blocks when the output has few tiles.
+``split_k`` spreads a long K over blocks when the output has few tiles
+(``split_k_tc`` does the same for the tensor-core weight gradient of the
+3x3 convs, ``csrc/conv_kxk_dw_tc.cu``).
 The other tile helpers of the JAX module (``row_map``, ``flat_pack``,
 ``dma_pipeline``) belong to kernels not ported yet.
 """
@@ -46,6 +48,38 @@ def split_k(m, n, k, device):
     per = -(-k // splits)
     per = -(-per // TILE_K) * TILE_K
     return -(-k // per), per
+
+
+# csrc/conv_kxk_dw_tc.cu's M tile and K step, and the least depth of a
+# split of its K
+TC_TILE_M, TC_TILE_K, TC_MIN_SPLIT = 128, 64, 2048
+
+
+def tc_tile_n(n):
+    return 128 if n % 128 == 0 else 64
+
+
+def split_k_tc(m, n, k, sms):
+    """(splits, k per split) of the tensor-core weight gradient's K on a
+    card with ``sms`` SMs: at least enough blocks for two waves, each split
+    a multiple of the K step and at least ``TC_MIN_SPLIT`` deep (one split
+    when K is shorter). From that least count up to twice it, the count
+    whose blocks fill their last wave best: the fewest waves times steps a
+    block, ties to fewer splits (a smaller workspace to reduce). Rounding a
+    split down to the step only adds splits, so the waves hold."""
+    tiles = -(-m // TC_TILE_M) * -(-n // tc_tile_n(n))
+    lo = max(1, min(-(-2 * sms // tiles), k // TC_MIN_SPLIT))
+    best = None
+    for s in range(lo, max(lo, min(2 * lo, k // TC_MIN_SPLIT)) + 1):
+        if s == 1:
+            per = -(-k // TC_TILE_K) * TC_TILE_K
+        else:
+            per = k // s // TC_TILE_K * TC_TILE_K
+        splits = -(-k // per)
+        cost = -(-tiles * splits // sms) * (per // TC_TILE_K)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
 
 
 def brgemm_reference(a, b, mode="nn", out_dtype=None, scale=None, bias=None,

@@ -102,9 +102,10 @@ def test_training_phase_shapes_are_transformer_long():
     assert (b, h, tq, tk, d, causal) == (
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
-    assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "flash_bwd",
-                                  "flash_fwd", "flash_fwd_tc", "fused_update",
-                                  "layer_norm", "pool_fused", "seqpool"]
+    assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "conv_kxk_dw_tc",
+                                  "flash_bwd", "flash_fwd", "flash_fwd_tc",
+                                  "fused_update", "layer_norm", "pool_fused",
+                                  "seqpool"]
 
 
 def test_permuted_keys_is_the_same_attention():
@@ -163,7 +164,74 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 13
+    assert len(chip_smoke.KERNELS) == 14
+
+
+def test_kernels_line_has_the_tensor_core_weight_gradient_row():
+    """The 14th row: the second implementation of the TPU kernel that the
+    SIMT weight gradient replaces, built from its own source."""
+    row, simt = chip_smoke.KERNELS["convkxk_dw_tc"], \
+        chip_smoke.KERNELS["convkxk_dw"]
+    assert row == {"route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/conv_kxk_dw_tc.cu",
+                   "replaces": "paddle_tpu/kernels/conv_fused.py:506"}
+    assert simt["replaces"] == row["replaces"]
+    assert "convkxk_dw_tc" in chip_smoke.RESNET_KERNELS
+
+
+def test_profile_symbols_tell_the_weight_gradient_routes_apart():
+    """The tensor-core row's symbol names its GEMM and its reduction's tag,
+    the GEMM's own symbol only the GEMM; neither holds the SIMT kernel's
+    loader name, nor it theirs."""
+    sym, gemm = chip_smoke.R_SYMBOLS["convkxk_dw_tc"], chip_smoke.DW_TC_KERNEL
+    simt = chip_smoke.R_SYMBOLS["convkxk_dw"]
+    assert sym == "conv_kxk_dw_tc" and gemm == sym + "_kernel"
+    assert simt == "XCols"
+    gemm_name = ("void (anonymous namespace)::conv_kxk_dw_tc_kernel<128, "
+                 "false>(__nv_bfloat16 const*)")
+    reduce_name = ("void igemm::splitk_reduce<(anonymous namespace)::"
+                   "conv_kxk_dw_tc_split>(float const*, int)")
+    assert sym in gemm_name and sym in reduce_name
+    assert gemm in gemm_name and gemm not in reduce_name
+    assert simt not in gemm_name + reduce_name
+
+
+@pytest.mark.parametrize("dtype,base,tc,simt", [
+    (torch.bfloat16, "R_PER_STEP", 16, 0),
+    (torch.float32, "R_PER_STEP", 0, 16),
+    (torch.bfloat16, "R_POOL_OFF", 16, 0),
+    (torch.bfloat16, "R_EVAL", 0, 0),
+], ids=["bf16_step", "f32_step", "bf16_pool_off", "eval"])
+def test_dw_routes_split_the_weight_gradients_by_dtype(dtype, base, tc,
+                                                       simt):
+    counts = getattr(chip_smoke, base)
+    want = chip_smoke.dw_routes(dtype, counts)
+    assert (want["convkxk_dw_tc"], want["convkxk_dw_simt"]) == (tc, simt)
+    assert want["convkxk_dw"] == tc + simt
+    assert {k: v for k, v in want.items()
+            if not k.startswith("convkxk_dw_")} == counts
+
+
+def test_resnet_3x3_shapes_take_the_route_the_script_asserts():
+    """R1 and R3 assert every 3x3 weight gradient of ResNet-50 on the
+    tensor cores in bf16 and on SIMT in float32: the port's rule says so
+    for every 3x3 shape of the step; the further R1 cases are bf16 tc
+    shapes that cover a dilation, a K that is no multiple of the K step,
+    and both store paths."""
+    from paddle_tpu_torch.kernels import tiles
+    from paddle_tpu_torch.kernels.conv_fused import dw_route
+    for h, c, o, k, s in chip_smoke.resnet50_conv_shapes():
+        if k == 3:
+            assert dw_route(torch.bfloat16, c, o, True) == "tc"
+            assert dw_route(torch.float32, c, o, True) == "simt"
+    cases = {c[0]: c for c in chip_smoke.R1_DW_TC_CASES}
+    assert cases["dilated"][3] == 2 and cases["dilated"][4]
+    _, (h, c, o, k, s), batch, _, _, _ = cases["ragged_k"]
+    oh = (h - 1) // s + 1
+    assert batch * oh * oh % tiles.TC_TILE_K != 0
+    assert cases["one_split"][5] == 1 and cases["most_splits"][5] == "most"
+    for _, (h, c, o, k, s), *_ in cases.values():
+        assert dw_route(torch.bfloat16, c, o, True) == "tc"
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [

@@ -161,6 +161,40 @@ def test_split_k_covers_k_in_steps_of_the_tile(m, n, k, monkeypatch):
     assert 1 <= splits <= 256
 
 
+@pytest.mark.parametrize("dtype,c,o,aligned,route", [
+    (torch.bfloat16, 64, 64, True, "tc"),
+    (torch.bfloat16, 512, 192, True, "tc"),
+    (torch.float32, 64, 64, True, "simt"),
+    (torch.bfloat16, 16, 64, True, "simt"),
+    (torch.bfloat16, 64, 70, True, "simt"),
+    (torch.bfloat16, 64, 64, False, "simt"),
+    (None, 64, 64, True, "simt"),
+], ids=["bf16_64", "bf16_512_192", "f32", "c16", "o70", "misaligned",
+        "mixed_dtypes"])
+def test_dw_route_takes_the_tensor_cores_only_where_they_fit(dtype, c, o,
+                                                             aligned, route):
+    assert pcf.dw_route(dtype, c, o, aligned) == route
+
+
+# (m, n, k) of ResNet-50's 3x3 weight gradients at batch 256 (M = 9C, N = O,
+# K = N*OH*OW), and short and ragged K
+TC_SPLIT_CASES = [(576, 64, 802816), (1152, 128, 200704), (2304, 256, 50176),
+                  (4608, 512, 12544), (576, 64, 75), (576, 64, 3000),
+                  (4608, 512, 4097), (64 * 9, 192, 65536)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m,n,k", TC_SPLIT_CASES, ids=str)
+def test_split_k_tc_covers_k_in_deep_steps_over_two_waves(m, n, k, sms):
+    splits, per = ptiles.split_k_tc(m, n, k, sms)
+    assert per % ptiles.TC_TILE_K == 0
+    assert (splits - 1) * per < k <= splits * per
+    assert splits == 1 or per >= ptiles.TC_MIN_SPLIT
+    blocks = -(-m // ptiles.TC_TILE_M) * (n // ptiles.tc_tile_n(n)) * splits
+    if k >= 2 * sms * ptiles.TC_MIN_SPLIT:      # deep enough for two waves
+        assert blocks >= 2 * sms
+
+
 # -- conv2d_bn_act (#4, #6, #7, #8) ---------------------------------------------
 
 
@@ -256,6 +290,17 @@ def test_conv_kernel_bwd_matches_reference_autograd():
 def test_conv2d_bn_act_bf16(ks, stride, pad):
     args = _conv_inputs(2, 8, 16, 32, ks, True, "bf16", stride, pad)
     _assert_pair(*_conv_pair(args, "relu", stride, pad, "bf16"), 0.1, 0.1)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv2d_bn_act_bf16_at_a_tensor_core_dw_shape(stride):
+    """C = O = 64, 3x3, relu and a scale: a shape whose bf16 weight
+    gradient takes the tensor cores on the card. Here the port's plain
+    version (with the fold) against the JAX ``_convkxk_dw`` in interpret
+    mode, with the output and the other gradients."""
+    assert pcf.dw_route(torch.bfloat16, 64, 64, True) == "tc"
+    args = _conv_inputs(2, 8, 64, 64, 3, False, "bf16", stride, 1, seed=4)
+    _assert_pair(*_conv_pair(args, "relu", stride, 1, "bf16"), 0.1, 0.1)
 
 
 def test_conv2d_bn_act_rejects_what_the_kernels_do_not_take():

@@ -1,9 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
 forward (both routes, the SIMT kernel and the tensor-core kernel, and the
 rule that picks one) and backward, the fused optimizer update, the conv
-kernels, the fused max pool, the embedding seqpool and the row LayerNorm
-against their plain versions, and the kernel launches of a tiny BERT
-step.
+kernels (the 3x3 weight gradient's two routes and the rule that picks
+one among them), the fused max pool, the embedding seqpool and the row
+LayerNorm against their plain versions, and the kernel launches of a
+tiny BERT step.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a GPU machine without JAX:
@@ -445,6 +446,118 @@ def test_conv_wrappers_raise_and_never_fall_back(cuda):
     with pytest.raises(ValueError):          # the wrong cotangent shape
         cf.convkxk_dx(x, None, None, w, x.shape, x.dtype, (1, 1),
                       ((0, 0), (0, 0)), (1, 1))
+
+
+# -- the tensor-core weight gradient (csrc/conv_kxk_dw_tc.cu) -----------------
+
+# (h, c, o, stride, dilation, fold, batch): C = O = 64 and 128, stride 1
+# and 2, with and without the fold, dilated, a ragged K (3 x 5 x 5 = 75
+# positions) and O = 192 (the 64-column tile)
+DW_TC_CASES = [(9, 64, 64, 1, 1, False, 2), (9, 64, 64, 2, 1, True, 2),
+               (8, 128, 128, 1, 1, True, 2), (8, 128, 128, 2, 1, False, 3),
+               (12, 64, 64, 1, 2, True, 2), (9, 64, 64, 2, 1, False, 3),
+               (7, 128, 192, 1, 1, True, 2)]
+
+
+def _dw_case(dev, h, c, o, stride, dil, fold, batch, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pad = dil
+    oh = (h + 2 * pad - 2 * dil - 1) // stride + 1
+    x = torch.randn(batch, h, h, c, device=dev, generator=gen).bfloat16()
+    g = torch.randn(batch, oh, oh, o, device=dev, generator=gen).bfloat16()
+    mask = scale = None
+    if fold:
+        scale = torch.rand(o, device=dev, generator=gen) + 0.5
+        mask = torch.relu(torch.randn(g.shape, device=dev,
+                                      generator=gen)).bfloat16()
+    return (g, mask, scale, x, (o, c, 3, 3), torch.bfloat16,
+            (stride, stride), ((pad, pad), (pad, pad)), (dil, dil))
+
+
+def _dw_routes(cf):
+    return cf.convkxk_dw_cuda.tc_launches, cf.convkxk_dw_cuda.simt_launches
+
+
+@pytest.mark.parametrize("case", DW_TC_CASES, ids=str)
+def test_dw_tc_route_matches_plain_version(cuda, case):
+    """bf16 at the gate of chip_smoke's R1 (2e-2 of max |plain|): one
+    float32 sum in another order, one bf16 rounding."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    args = _dw_case(cuda, *case)
+    before = _dw_routes(cf)
+    got = cf.convkxk_dw_cuda(*args)
+    torch.cuda.synchronize()
+    assert _dw_routes(cf) == (before[0] + 1, before[1])
+    ref = cf.convkxk_dw_reference(*args)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    err = ((got.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert err < 2e-2, err
+    # one split (the kernel stores through the epilogue) and the most
+    # splits (one K step each) compute the same
+    k = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
+    for splits in (1, -(-k // 64)):
+        forced = cf.convkxk_dw_launch("tc", *args, splits=splits)
+        torch.cuda.synchronize()
+        err = ((forced.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert err < 2e-2, (splits, err)
+
+
+def test_dw_route_counters_follow_the_rule(cuda):
+    """Of CONV_SHAPES' 3x3 convs, (8, 64, 64, 3, 2) takes the tensor cores
+    in bf16 and the rest (C = 16 or 3, O = 70 or 130) SIMT; float32 and a
+    base off 16 bytes take SIMT. Every launch counts in
+    ``convkxk_dw.launches`` too."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    cases = []
+    for shape in CONV_SHAPES:
+        if shape[3] != 3:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            want = "tc" if dtype == torch.bfloat16 and shape == (
+                8, 64, 64, 3, 2) else "simt"
+            cases.append((_conv_case(cuda, shape, dtype, False), want))
+    for calls, want in cases:
+        kern, plain = calls["convkxk_dw"]
+        before, n = _dw_routes(cf), cf.convkxk_dw.launches
+        got = kern()
+        torch.cuda.synchronize()
+        assert _dw_routes(cf) == ((before[0] + 1, before[1]) if want == "tc"
+                                  else (before[0], before[1] + 1))
+        assert cf.convkxk_dw.launches == n + 1
+        ref = plain()
+        tol = 1e-4 if got.dtype == torch.float32 else 2e-2
+        assert ((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max()).item() < tol
+    args = list(_dw_case(cuda, 8, 64, 64, 1, 1, False, 2))
+    buf = torch.empty(args[3].numel() + 1, device=cuda, dtype=torch.bfloat16)
+    off = buf[1:].view(args[3].shape)        # 2 bytes past an aligned base
+    off.copy_(args[3])
+    args[3] = off
+    before = _dw_routes(cf)
+    cf.convkxk_dw_cuda(*args)
+    torch.cuda.synchronize()
+    assert _dw_routes(cf) == (before[0], before[1] + 1)
+
+
+def test_dw_tc_launch_raises_and_never_falls_back(cuda):
+    """The tensor-core weight gradient's wrapper refuses float32 and its C
+    entry C = 16 and a misaligned base: the launch raises, and no other
+    kernel or plain version runs in its place."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    f32 = list(_dw_case(cuda, 8, 64, 64, 1, 1, False, 2))
+    f32[0], f32[3], f32[5] = f32[0].float(), f32[3].float(), torch.float32
+    c16 = _dw_case(cuda, 8, 16, 64, 1, 1, False, 2)
+    before = _dw_routes(cf), cf.convkxk_dw.launches
+    with pytest.raises(TypeError):
+        cf.convkxk_dw_launch("tc", *f32)
+    with pytest.raises(RuntimeError, match="conv_kxk_dw_tc launch failed"):
+        cf.convkxk_dw_launch("tc", *c16)
+    with pytest.raises(ValueError):
+        cf.convkxk_dw_launch("wgmma", *c16)
+    assert (_dw_routes(cf), cf.convkxk_dw.launches) == before
 
 
 def test_max_pool_ties_on_nhwc_cuda_tensors_take_the_first_max(cuda):
