@@ -8,27 +8,31 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. build    every kernel of the paths from ``paddle_tpu_torch/csrc`` (one
             ``nvcc`` per source, all started together); ``cuobjdump -sass``
             must find wgmma (``HGMMA``) in every function of the
-            tensor-core flash forward and of the tensor-core weight
-            gradient;
+            tensor-core flash forward, of the tensor-core 3x3 forward and
+            of the tensor-core weight gradient;
 
 Then the ResNet-50 path (``paddle_tpu_torch/bench.py``'s step with the conv
 kernels on: ``csrc/brgemm.cu`` for the 1x1 convs, ``csrc/conv_kxk.cu`` for
-the 3x3 ones, forward, dx and dw, where ``conv_fused.dw_route`` sends every
-bf16 weight gradient of ResNet-50 to ``csrc/conv_kxk_dw_tc.cu`` (wgmma)
-and the float32 ones to the SIMT ``conv_kxk_dw``; and with
-``PADDLE_TPU_POOL_FUSED`` set, the stem's max pool in
-``csrc/pool_fused.cu``, forward and backward):
+the 3x3 ones, forward, dx and dw, where ``conv_fused.kxk_fwd_route`` sends
+every bf16 3x3 forward of ResNet-50 to ``csrc/conv_kxk_fwd_tc.cu`` (wgmma)
+and ``conv_fused.dw_route`` every bf16 weight gradient to
+``csrc/conv_kxk_dw_tc.cu`` (wgmma), the float32 ones to the SIMT
+``conv_kxk_fwd`` and ``conv_kxk_dw``; and with ``PADDLE_TPU_POOL_FUSED``
+set, the stem's max pool in ``csrc/pool_fused.cu``, forward and backward):
 
 R1. kernels  each conv kernel against its plain version at every distinct
              conv shape of ResNet-50 at 224 (batch 8), forward, dx and dw,
              in float32 and bfloat16, plus the epilogue (scale, bias,
              residual, relu) and the cotangent fold at a strided 1x1 and a
-             strided 3x3, each 3x3 weight gradient on the route the rule
-             names (tensor cores in bf16, SIMT in float32; the worst error
-             logged by route); the tensor-core weight gradient also
-             dilated, at a K that is no multiple of its K step, and forced
-             to one split and to the most splits; max-pool ties on NHWC
-             CUDA tensors (knob off);
+             strided 3x3, each 3x3 forward and weight gradient on the route
+             the rules name (tensor cores in bf16, SIMT in float32; the
+             worst error logged by route); the tensor-core forward also
+             dilated, at an M that is no multiple of its tile, at O = 192,
+             with a float32 output and with the eval chain (scale, bias,
+             relu); the tensor-core weight gradient also dilated, at a K
+             that is no multiple of its K step, and forced to one split and
+             to the most splits; max-pool ties on NHWC CUDA tensors (knob
+             off);
 R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth),
              the pool knob on: two Momentum steps through the kernels and
              through their plain versions from the same state, and both
@@ -36,8 +40,9 @@ R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth),
              function, its batch sums in another order); the first loss,
              every first-step gradient leaf, the BN running stats and the
              last loss gated (a fixed tolerance, or twice the floor); 108
-             brgemm, 16 of each 3x3 kernel (every weight gradient on the
-             SIMT kernel) and one of each pool kernel launched a step;
+             brgemm, 16 of each 3x3 kernel (every forward and weight
+             gradient on the SIMT kernels) and one of each pool kernel
+             launched a step;
 P1. pool     the pool kernels against their plain versions at the stem's
              shape (bf16 at batch 256, float32 at batch 8), at odd planes,
              on windows of ties and on NaN / -inf / finfo.min entries: out
@@ -103,20 +108,25 @@ Back on the ResNet-50 path:
 
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
              in pure bf16, the pool knob on: the main path's counted step
-             (launches as in R2, every weight gradient on the tensor
-             cores), timed steps (imgs/s over all of them), one profiled
-             step each (device busy time, idle share over its own wall
-             time; its own count of 16 tensor-core weight gradients and
-             no SIMT one gated); in the lowp default a counted step with the
-             pool knob off (no pool launch) and timed steps with the knob
-             off and on in turns; in pure bf16 an eval forward through the
-             conv+BN+relu epilogue (36 + 16 conv launches, one pool_fwd);
+             (launches as in R2, every 3x3 forward and weight gradient on
+             the tensor cores), timed steps (imgs/s over all of them), one
+             profiled step each (device busy time, idle share over its own
+             wall time; its own count of 16 tensor-core forwards and 16
+             tensor-core weight gradients, and no SIMT one, gated); in the
+             lowp default a counted step with the pool knob off (no pool
+             launch) and timed steps with the knob off and on in turns; in
+             pure bf16 an eval forward through the conv+BN+relu epilogue
+             (36 + 16 conv launches, one pool_fwd; the stem's BatchNorm,
+             whose running stats are float32, hands the convs a float32
+             activation, so the 16 take the SIMT forward, as the rule
+             says);
 R4. numbers  each conv and pool kernel's device time a launch, from its own
              launches in the profiled lowp step, beside the mean over the
              step's launches of its bound, its plain version and a library
              call (``torch.matmul``, cuDNN, ``F.max_pool2d``) that the port
-             never calls; the SIMT weight gradient, which the step no
-             longer runs, timed on the same bf16 inputs (``simt_ms``).
+             never calls; the SIMT forward and weight gradient, which the
+             step no longer runs, timed on the same bf16 inputs
+             (``simt_ms``).
 
 Then the serving path:
 
@@ -251,6 +261,12 @@ KERNELS = {
     "convkxk": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "paddle_tpu/kernels/conv_fused.py:241",
+    },
+    # the same TPU kernel's second implementation: bf16 on the tensor cores
+    "convkxk_tc": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
         "replaces": "paddle_tpu/kernels/conv_fused.py:241",
     },
     "convkxk_dx": {
@@ -405,7 +421,8 @@ def phase_build():
             "per_kernel": {n: i["seconds"]
                            for n, i in native_build.build_info.items()},
             "sass": {name: sass_check(paths[name], f"{name}_kernel", "HGMMA")
-                     for name in ("flash_fwd_tc", "conv_kxk_dw_tc")}}
+                     for name in ("flash_fwd_tc", "conv_kxk_fwd_tc",
+                                  "conv_kxk_dw_tc")}}
 
 
 def sass_check(lib, symbol, opcode):
@@ -1665,8 +1682,10 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
 
 # -- ResNet-50 (R1-R4) ----------------------------------------------------------
 
-RESNET_KERNELS = ("brgemm", "convkxk", "convkxk_dx", "convkxk_dw",
-                  "convkxk_dw_tc")
+RESNET_KERNELS = ("brgemm", "convkxk", "convkxk_tc", "convkxk_dx",
+                  "convkxk_dw", "convkxk_dw_tc")
+# each tensor-core row's SIMT twin: the same function, by another route
+TC_TWIN = {"convkxk_tc": "convkxk", "convkxk_dw_tc": "convkxk_dw"}
 # launches of a bf16 training step of ResNet-50 with the conv and pool
 # knobs on (36 1x1 convs: forward, dx and dw each; 16 3x3 convs; the stem's
 # max pool) and of an eval forward
@@ -1676,27 +1695,45 @@ R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0,
           "pool_fwd": 1, "pool_bwd": 0}
 # the step with the pool knob off
 R_POOL_OFF = dict(R_PER_STEP, pool_fwd=0, pool_bwd=0)
+# the dtype the eval forward's convs see in the pure bf16 model: the stem's
+# BatchNorm (float32 running stats) promotes the activation to float32
+EVAL_DTYPE = torch.float32
 # (forward, backward) gates, relative to the output's largest magnitude
 R_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 R_SIZE, R1_BATCH, R2_BATCH, R3_BATCH = 224, 8, 32, 256
 R2_STEPS, R3_TIMED = 2, 3
 # the profiled kernels' names: each SIMT kernel's loader type is in its
 # template arguments (the split-K reductions carry it too); the tensor-core
-# weight gradient's kernel and its reduction's tag hold "conv_kxk_dw_tc"
-R_SYMBOLS = {"brgemm": "DenseA", "convkxk": "XRows", "convkxk_dx": "DyRows",
+# forward's kernel holds "conv_kxk_fwd_tc", the tensor-core weight
+# gradient's kernel and its reduction's tag "conv_kxk_dw_tc"
+R_SYMBOLS = {"brgemm": "DenseA", "convkxk": "XRows",
+             "convkxk_tc": "conv_kxk_fwd_tc", "convkxk_dx": "DyRows",
              "convkxk_dw": "XCols", "convkxk_dw_tc": "conv_kxk_dw_tc",
              "pool_fwd": "pool_fwd_kernel", "pool_bwd": "pool_bwd_kernel"}
+# the tensor-core forward's kernel (one a launch)
+FWD_TC_KERNEL = "conv_kxk_fwd_tc_kernel"
 # the tensor-core weight gradient's GEMM alone (one a launch)
 DW_TC_KERNEL = "conv_kxk_dw_tc_kernel"
+# a profiled bf16 step's count of each: the 16 3x3 forwards and weight
+# gradients on the tensor cores, none on the SIMT kernels
+TC_IN_STEP = {FWD_TC_KERNEL: R_PER_STEP["convkxk"],
+              R_SYMBOLS["convkxk"]: 0,
+              DW_TC_KERNEL: R_PER_STEP["convkxk_dw"],
+              R_SYMBOLS["convkxk_dw"]: 0}
 
 
-def dw_routes(dtype, base=R_PER_STEP):
-    """``base``'s launches with the 3x3 weight gradient's split by route
-    (``conv_fused.dw_route``): every one of ResNet-50's (C = O, multiples
-    of 64) on the tensor cores in bf16, on the SIMT kernel in float32."""
-    n = base["convkxk_dw"]
-    tc = n if dtype == torch.bfloat16 else 0
-    return dict(base, convkxk_dw_tc=tc, convkxk_dw_simt=n - tc)
+def routes(dtype, base=R_PER_STEP, names=tuple(TC_TWIN.values())):
+    """``base``'s launches with each named 3x3 kernel's count split into
+    ``<name>_tc`` and ``<name>_simt``, as ``r_counts()`` reads them
+    (``conv_fused.kxk_fwd_route``, ``conv_fused.dw_route``): every one of
+    ResNet-50's (C = O, multiples of 64) on the tensor cores in bf16, on
+    the SIMT kernel in float32."""
+    out = dict(base)
+    for name in names:
+        n = base[name]
+        tc = n if dtype == torch.bfloat16 else 0
+        out[f"{name}_tc"], out[f"{name}_simt"] = tc, n - tc
+    return out
 
 
 def resnet50_conv_shapes(size=R_SIZE):
@@ -1740,7 +1777,7 @@ _R_COUNTED = {}
 
 def r_counters():
     """(wrapper, attribute) that counts each ResNet kernel's launches, and
-    the weight gradient's by route, taken once, before
+    the 3x3 forward's and weight gradient's by route, taken once, before
     ``plain_conv_kernels`` swaps any wrapper out."""
     if not _R_COUNTED:
         from paddle_tpu_torch.kernels import conv_fused as cf
@@ -1749,6 +1786,8 @@ def r_counters():
         _R_COUNTED.update(
             brgemm=(tiles.brgemm, "launches"),
             convkxk=(cf.convkxk, "launches"),
+            convkxk_tc=(cf.convkxk_cuda, "tc_launches"),
+            convkxk_simt=(cf.convkxk_cuda, "simt_launches"),
             convkxk_dx=(cf.convkxk_dx, "launches"),
             convkxk_dw=(cf.convkxk_dw, "launches"),
             convkxk_dw_tc=(cf.convkxk_dw_cuda, "tc_launches"),
@@ -1858,13 +1897,71 @@ def conv_calls(shape, x, w, g, extra=None):
                            lambda: cf.convkxk_dw_reference(*bwd_dw))}
 
 
-def dw_route_taken(before):
-    """The route of the one weight-gradient launch since ``before`` (an
-    ``r_counts()``), or None when it was not exactly one launch."""
+def route_taken(before, name):
+    """The route of the one launch of ``name`` (``"convkxk"`` or
+    ``"convkxk_dw"``) since ``before`` (an ``r_counts()``), or None when it
+    was not exactly one launch."""
     after = r_counts()
-    got = {r: after[f"convkxk_dw_{r}"] - before[f"convkxk_dw_{r}"]
+    got = {r: after[f"{name}_{r}"] - before[f"{name}_{r}"]
            for r in ("tc", "simt")}
     return {(1, 0): "tc", (0, 1): "simt"}.get((got["tc"], got["simt"]))
+
+
+# R1's further tensor-core forward cases (bf16): (case, shape (h, c, o, k,
+# stride), batch, dilation, epilogue, out_dtype): a dilated conv (padding
+# 2), an M that is no multiple of the 128-row tile (3 x 5 x 5 = 75), O =
+# 192 (three 64-column tiles), a float32 output, and the eval chain
+# (scale, bias, relu; no residual) at the last stage's shape
+R1_FWD_TC_CASES = [
+    ("dilated", (28, 64, 64, 3, 1), R1_BATCH, 2, False, None),
+    ("ragged_m", (9, 64, 64, 3, 2), 3, 1, False, None),
+    ("o192", (14, 64, 192, 3, 1), R1_BATCH, 1, False, None),
+    ("f32_out", (28, 128, 128, 3, 1), R1_BATCH, 1, False, torch.float32),
+    ("eval_chain", (7, 512, 512, 3, 1), R1_BATCH, 1, True, None),
+]
+
+
+def fwd_tc_cases(dev, seed):
+    """R1's further bf16 cases of the tensor-core forward through
+    ``convkxk_cuda`` (route asserted) against the plain version, at the
+    forward's gate."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    f_tol, _ = R_TOL[torch.bfloat16]
+    out = []
+    for case, shape, batch, dil, epi, out_dtype in R1_FWD_TC_CASES:
+        h, c, o, k, s = shape
+        x, w, _ = r_inputs(shape, batch, torch.bfloat16, dev, seed)
+        pad = dil * (k - 1) // 2
+        scale = bias = None
+        if epi:
+            gen = torch.Generator(device=dev).manual_seed(seed + 3)
+            scale = torch.rand(o, device=dev, generator=gen) + 0.5
+            bias = torch.randn(o, device=dev, generator=gen)
+        args = (x, w, scale, bias, None, epi, (s, s),
+                ((pad, pad), (pad, pad)), (dil, dil), out_dtype)
+        before = r_counts()
+        got = cf.convkxk_cuda(*args)
+        torch.cuda.synchronize()
+        route = route_taken(before, "convkxk")
+        ref = cf.convkxk_reference(*args)
+        diff = (got.float() - ref.float()).abs().max().item()
+        rel = diff / max(ref.float().abs().max().item(), 1e-30)
+        ok = route == "tc" and bool(torch.isfinite(got).all()) and \
+            rel <= f_tol and got.dtype == ref.dtype and \
+            got.shape == ref.shape
+        rec = {"kernel": "convkxk", "route": route, "case": case,
+               "dtype": "bfloat16", "shape": list(shape), "batch": batch,
+               "dilation": dil, "epilogue": epi,
+               "out_dtype": str(got.dtype).split(".")[-1],
+               "max_abs_err": diff, "rel_err": rel, "ok": ok}
+        out.append(rec)
+        log(f"[R1] convkxk {route} bfloat16 {case:<10} {shape} batch {batch} "
+            f"dilation {dil} epilogue {epi} out {rec['out_dtype']}: "
+            f"|kernel-plain| / max|plain| {rel:.3e} (gate {f_tol:g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("R1", f"{rec}")
+    return out
 
 
 # R1's further tensor-core weight-gradient cases (bf16): (case, shape (h,
@@ -1906,7 +2003,7 @@ def dw_tc_cases(dev, seed):
         if splits is None:
             got = cf.convkxk_dw_cuda(*args)
             torch.cuda.synchronize()
-            route = dw_route_taken(before)
+            route = route_taken(before, "convkxk_dw")
         else:
             k_len = batch * oh * oh
             n_split = -(-k_len // 64) if splits == "most" else splits
@@ -1937,9 +2034,11 @@ def phase_resnet_kernels(dev, seed):
     """R1: every kernel against its plain version at every distinct conv
     shape of ResNet-50 at 224 (batch 8), forward, dx and dw, in float32
     and bfloat16; the epilogue and the fold at a strided 1x1 and a strided
-    3x3; each 3x3 weight gradient on the route ``dw_route`` names (the
-    tensor cores in bf16, SIMT in float32) and the tensor-core one's
-    further cases (``dw_tc_cases``); max-pool ties on NHWC CUDA tensors."""
+    3x3; each 3x3 forward and weight gradient on the route
+    ``kxk_fwd_route`` and ``dw_route`` name (the tensor cores in bf16,
+    SIMT in float32) and the tensor-core ones' further cases
+    (``fwd_tc_cases``, ``dw_tc_cases``); max-pool ties on NHWC CUDA
+    tensors."""
     results, worst = [], {}
     distinct = sorted(set(resnet50_conv_shapes()))
     extra_shapes = [(56, 256, 512, 1, 2), (56, 128, 128, 3, 2)]
@@ -1965,11 +2064,11 @@ def phase_resnet_kernels(dev, seed):
                     got = kern()
                     torch.cuda.synchronize()
                     route = None
-                    if name == "convkxk_dw":
-                        route = dw_route_taken(before)
+                    if name in ("convkxk", "convkxk_dw"):
+                        route = route_taken(before, name)
                         want = "tc" if dtype == torch.bfloat16 else "simt"
                         if route != want:
-                            fail("R1", f"convkxk_dw {shape} {dtype}: route "
+                            fail("R1", f"{name} {shape} {dtype}: route "
                                        f"{route}, expected {want}")
                     ref = plain()
                     diff = (got.float() - ref.float()).abs().max().item()
@@ -1987,16 +2086,17 @@ def phase_resnet_kernels(dev, seed):
                         fail("R1", f"{rec}")
                     key = "brgemm" if name.startswith("brgemm") else name
                     # each kernel's error on its main path's dtype: the
-                    # SIMT weight gradient's is float32's (R2) since the
-                    # bf16 step takes the tensor cores
+                    # SIMT forward's and weight gradient's are float32's
+                    # (R2) since the bf16 step takes the tensor cores
                     if route == "tc":
-                        key = "convkxk_dw_tc"
+                        key = f"{name}_tc"
                     main_dtype = torch.float32 if route == "simt" else \
                         torch.bfloat16
                     if dtype == main_dtype and case == "path":
                         worst[key] = max(worst.get(key, 0.0), diff)
                 del x, w, g, extra
         torch.cuda.empty_cache()
+    results += fwd_tc_cases(dev, seed)
     results += dw_tc_cases(dev, seed)
     summary = {}
     for r in results:
@@ -2119,8 +2219,8 @@ def phase_resnet_train(dev, seed):
     loss within 1e-4 relative, or any of them within NOISE_FACTOR times
     its floor; 108/16/16/16 conv and 1/1 pool launches a step through the
     kernels (the pool knob is on, so the fused max pool sits inside the
-    same gates), every weight gradient on the SIMT kernel (float32), none
-    through the plain versions."""
+    same gates), every 3x3 forward and weight gradient on the SIMT kernels
+    (float32), none through the plain versions."""
     from paddle_tpu_torch import bench
     set_resnet_knobs(pool=True)
     model, params, opt, _, x, _ = bench.build(
@@ -2140,7 +2240,7 @@ def phase_resnet_train(dev, seed):
             f"{', '.join(f'{v:.6f}' for v in runs[route]['losses'])}; "
             f"launches a step {runs[route]['counts'][0]}")
     for route, run in runs.items():
-        want = dw_routes(torch.float32)
+        want = routes(torch.float32)
         if not route.startswith("kernel"):
             want = {k: 0 for k in want}
         if any(c != want for c in run["counts"]):
@@ -2156,11 +2256,11 @@ def phase_resnet_train(dev, seed):
     rec = {"losses": {r: v["losses"] for r, v in runs.items()},
            "first_loss_rel": first,
            "launches_per_step": runs["kernel"]["counts"][0],
-           # the SIMT weight gradient's main path since the bf16 step
-           # takes the tensor cores
-           "dw_simt_launches": sum(c["convkxk_dw_simt"]
-                                   for r in ("kernel", "kernel_perm")
-                                   for c in runs[r]["counts"]),
+           # over the kernel runs' steps: the SIMT forward's and weight
+           # gradient's main path since the bf16 step takes the tensor cores
+           "launches": {k: sum(c[k] for r in ("kernel", "kernel_perm")
+                               for c in runs[r]["counts"])
+                        for k in runs["kernel"]["counts"][0]},
            "grads": r2_gate("first-step gradients", runs,
                             lambda r: r["grads"], 1e-3),
            "bn_stats": r2_gate("BN running stats after 2 steps", runs,
@@ -2178,16 +2278,20 @@ def phase_resnet_bench(dev, seed):
     256 x 224 in bf16 with the conv and pool knobs on
     (``PADDLE_TPU_POOL_FUSED`` set), lowp default then ``lowp=""``. In
     each: a warm-up step; the counted step of the main path (counts set to
-    0 just before, read just after: 108/16/16/16 conv, the 16 weight
-    gradients on the tensor cores, 1/1 pool); timed steps (imgs/s over all
-    of them); one profiled step (device busy time, idle share over its own
-    wall time, 16 tensor-core weight-gradient GEMMs and no SIMT one in its
-    own count, and in the lowp default each kernel's device time from its
-    own launches). In the lowp default also
+    0 just before, read just after: 108/16/16/16 conv, the 16 3x3 forwards
+    and the 16 weight gradients on the tensor cores, 1/1 pool); timed steps
+    (imgs/s over all of them); one profiled step (device busy time, idle
+    share over its own wall time, 16 tensor-core forwards, 16 tensor-core
+    weight-gradient GEMMs and no SIMT 3x3 forward or weight gradient in
+    its own count, and in the lowp default each kernel's device time from
+    its own launches). In the lowp default also
     a counted step with the pool knob off (no pool launch) and timed steps
     with the knob off and on in turns (off, on, on, off, ...). In
     ``lowp=""`` an eval forward with the conv+BN+relu epilogue: 36 brgemm,
-    16 convkxk and 1 pool_fwd launches, finite logits."""
+    16 convkxk and 1 pool_fwd launches, finite logits. It is float32 from
+    the stem's BatchNorm on (float32 running stats promote the bf16
+    activation), so its 16 3x3 forwards take the SIMT kernel
+    (``EVAL_DTYPE``)."""
     from paddle_tpu_torch import bench
     set_resnet_knobs(pool=True)
     out = {}
@@ -2205,9 +2309,9 @@ def phase_resnet_bench(dev, seed):
         losses.append(step().item())               # the main path's step
         torch.cuda.synchronize()
         counts = r_counts()
-        if counts != dw_routes(torch.bfloat16):
+        if counts != routes(torch.bfloat16):
             fail("R3", f"{label}: launches in the step {counts}, expected "
-                       f"{dw_routes(torch.bfloat16)}")
+                       f"{routes(torch.bfloat16)}")
         rec = {}
         if lowp:
             set_resnet_knobs(pool=False)
@@ -2215,7 +2319,7 @@ def phase_resnet_bench(dev, seed):
             losses.append(step().item())
             torch.cuda.synchronize()
             rec["launches_pool_off"] = r_counts()
-            want = dw_routes(torch.bfloat16, R_POOL_OFF)
+            want = routes(torch.bfloat16, R_POOL_OFF)
             if rec["launches_pool_off"] != want:
                 fail("R3", f"{label}, pool knob off: launches "
                            f"{rec['launches_pool_off']}, expected {want}")
@@ -2233,11 +2337,11 @@ def phase_resnet_bench(dev, seed):
         set_resnet_knobs(pool=True)
         wall = walls[True]
         # the profile's own count of the kernels the gates count: the
-        # pool kernels, and every weight gradient on the tensor cores
+        # pool kernels, and every 3x3 forward and weight gradient on the
+        # tensor cores
         expect = {R_SYMBOLS[k]: R_PER_STEP[k] for k in ("pool_fwd",
                                                         "pool_bwd")}
-        expect.update({DW_TC_KERNEL: R_PER_STEP["convkxk_dw"],
-                       R_SYMBOLS["convkxk_dw"]: 0})
+        expect.update(TC_IN_STEP)
         busy, kernels, prof_ms = profiled(
             step, f"the ResNet-50 step ({label})", expect=expect)
         step_ms = sum(wall) / len(wall)
@@ -2260,13 +2364,13 @@ def phase_resnet_bench(dev, seed):
                       "device_ms": sum(r[2] for r in kernels
                                        if sym in r[0])}
                 for key, sym in R_SYMBOLS.items()}
-            dw = {sym: sum(r[1] for r in kernels if sym in r[0])
-                  for sym in (DW_TC_KERNEL, R_SYMBOLS["convkxk_dw"])}
-            rec["dw_kernels_in_step"] = dw
-            if dw != {DW_TC_KERNEL: R_PER_STEP["convkxk_dw"],
-                      R_SYMBOLS["convkxk_dw"]: 0}:
-                fail("R3", f"{label}: the profiled step ran the weight "
-                           f"gradients {dw}, expected all 16 on the tensor "
+            tc = {sym: sum(r[1] for r in kernels if sym in r[0])
+                  for sym in TC_IN_STEP}
+            rec["tc_kernels_in_step"] = tc
+            if tc != TC_IN_STEP:
+                fail("R3", f"{label}: the profiled step ran the 3x3 "
+                           f"forwards and weight gradients {tc}, expected "
+                           f"{TC_IN_STEP}: all 16 of each on the tensor "
                            f"cores")
         log(f"[R3] {label}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
             f"launches a step {counts}; pool knob on: step "
@@ -2289,14 +2393,18 @@ def phase_resnet_bench(dev, seed):
                 logits = model(x)
             torch.cuda.synchronize()
             ev = r_counts()
-            ok = ev == dw_routes(torch.bfloat16, R_EVAL) and \
-                bool(torch.isfinite(logits).all()) and \
+            want = routes(EVAL_DTYPE, R_EVAL)
+            finite = bool(torch.isfinite(logits).all())
+            ok = ev == want and finite and \
                 tuple(logits.shape) == (R3_BATCH, 1000)
-            rec["eval"] = {"launches": ev, "ok": ok}
+            rec["eval"] = {"launches": ev, "logits_dtype": str(logits.dtype),
+                           "finite": finite, "ok": ok}
             log(f"[R3] eval forward (conv+BN+relu epilogue): launches {ev}, "
-                f"logits {tuple(logits.shape)} finite: {ok}")
+                f"logits {tuple(logits.shape)} {logits.dtype} finite: "
+                f"{finite}")
             if not ok:
-                fail("R3", f"eval forward: launches {ev}, expected {R_EVAL}")
+                fail("R3", f"eval forward: launches {ev}, expected {want}; "
+                           f"logits finite: {finite}")
         out[label] = rec
         del model, params, opt, state, x
         torch.cuda.empty_cache()
@@ -2336,10 +2444,12 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     bound (the larger of bytes / HBM rate and flops / bf16 peak), of its
     plain version and of a library call (CUDA events, ``iters`` calls a
     distinct shape, weighted by how often the step runs it). The 3x3
-    weight gradient has a row a route: the tensor cores' time comes from
-    the step; the SIMT kernel, which the bf16 step no longer runs, is timed
-    on the same bf16 inputs (``convkxk_dw_launch("simt", ...)``, one
-    profiled session over the step's 16 calls) as ``simt_ms``."""
+    forward and weight gradient have a row a route: the tensor cores'
+    times come from the step; the SIMT kernels, which the bf16 step no
+    longer runs, are timed on the same bf16 inputs
+    (``convkxk_launch("simt", ...)`` and ``convkxk_dw_launch("simt",
+    ...)``, one profiled session each over the step's 16 calls) as
+    ``simt_ms``."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     from paddle_tpu_torch.kernels import tiles
     shapes = resnet50_conv_shapes()
@@ -2348,65 +2458,71 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
         counts[sh] = counts.get(sh, 0) + 1
     acc = {k: {"bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bytes_bound": 0, "n": 0} for k in RESNET_KERNELS}
-    simt_calls, simt_rows = [], 0
+    twins = {simt: tc for tc, simt in TC_TWIN.items()}
+    # per SIMT 3x3 kernel: its calls on the step's bf16 inputs and the
+    # kernel records a profile of them shows (the weight gradient's split-K
+    # reductions carry its loader's name too)
+    simt_calls = {k: [] for k in twins}
+    simt_rows = dict.fromkeys(twins, 0)
     for shape, mult in counts.items():
         x, w, g = r_inputs(shape, R3_BATCH, torch.bfloat16, dev, seed)
         nbytes, flops = conv_work(shape, R3_BATCH, 2)
         b_ms, by = bound_ms(nbytes, flops, torch.bfloat16)
         for name, (_, plain) in conv_calls(shape, x, w, g).items():
             key = "brgemm" if name.startswith("brgemm") else name
-            # both weight-gradient routes compute the same function
-            for k in (key, "convkxk_dw_tc") if key == "convkxk_dw" else \
-                    (key,):
+            # both routes of a 3x3 kernel compute the same function
+            keys = (key, twins[key]) if key in twins else (key,)
+            for k in keys:
                 a = acc[k]
                 a["n"] += mult
                 a["bound_ms"] += mult * b_ms
                 a["bytes_bound"] += mult * (by == "bytes")
             t_plain = time_ms(plain, [()], iters)
             t_lib = time_ms(library_call(name, shape, x, w, g), [()], iters)
-            for k in (key, "convkxk_dw_tc") if key == "convkxk_dw" else \
-                    (key,):
+            for k in keys:
                 acc[k]["plain_ms"] += mult * t_plain
                 acc[k]["library_ms"] += mult * t_lib
         if shape[3] == 3:
             s = shape[4]
-            args = (g, None, None, x, w.shape, torch.bfloat16, (s, s),
-                    ((1, 1), (1, 1)), (1, 1))
+            geo = ((s, s), ((1, 1), (1, 1)), (1, 1))
             m, k = 9 * shape[1], g.shape[0] * g.shape[1] * g.shape[2]
-            # the SIMT kernel's launches, and its split-K reductions
-            per_call = 1 + (tiles.split_k(m, shape[2], k, dev)[0] > 1)
-            simt_calls += [args] * mult
-            simt_rows += per_call * mult
+            simt_calls["convkxk"] += [
+                (x, w, None, None, None, False, *geo)] * mult
+            simt_rows["convkxk"] += mult
+            simt_calls["convkxk_dw"] += [
+                (g, None, None, x, w.shape, torch.bfloat16, *geo)] * mult
+            simt_rows["convkxk_dw"] += mult * (
+                1 + (tiles.split_k(m, shape[2], k, dev)[0] > 1))
         del x, w, g
         torch.cuda.empty_cache()
 
-    def simt_run():
-        for args in simt_calls:
-            cf.convkxk_dw_launch("simt", *args)
+    launch = {"convkxk": cf.convkxk_launch,
+              "convkxk_dw": cf.convkxk_dw_launch}
+    simt_ms = {}
+    for key, calls in simt_calls.items():
+        def simt_run(key=key, calls=calls):
+            for args in calls:
+                launch[key]("simt", *args)
 
-    simt_run()
-    sym = R_SYMBOLS["convkxk_dw"]
-    _, rows, _ = profiled(simt_run, "the SIMT weight gradients (bf16)",
-                          expect={sym: simt_rows})
-    simt_total = sum(r[2] for r in rows if sym in r[0])
-    if simt_total <= 0:
-        fail("R4", "the SIMT weight gradients' session recorded no device "
-                   "time")
-    simt_ms = simt_total / len(simt_calls)
+        simt_run()
+        sym = R_SYMBOLS[key]
+        _, rows, _ = profiled(simt_run, f"the SIMT {key} calls (bf16)",
+                              expect={sym: simt_rows[key]})
+        total = sum(r[2] for r in rows if sym in r[0])
+        if total <= 0:
+            fail("R4", f"the SIMT {key} session recorded no device time")
+        simt_ms[key] = total / len(calls)
     del simt_calls
     torch.cuda.empty_cache()
     numbers = {}
     in_step = step_rec["kernels_in_step"]
     for key, a in acc.items():
-        launches = R_PER_STEP["convkxk_dw" if key == "convkxk_dw_tc"
-                              else key]
+        launches = R_PER_STEP[TC_TWIN.get(key, key)]
         if a["n"] != launches:
             fail("R4", f"{key}: {a['n']} calls in the shape table, "
                        f"{launches} a step")
-        if key == "convkxk_dw":
-            ms = simt_ms
-        else:
-            ms = in_step[key]["device_ms"] / launches
+        ms = simt_ms[key] if key in simt_ms else \
+            in_step[key]["device_ms"] / launches
         rec = {"ms": ms, "launches_per_step": launches,
                "bound_ms": a["bound_ms"] / launches,
                "bound_by": "bytes" if a["bytes_bound"] * 2 > launches
@@ -2415,21 +2531,21 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                "library_ms": a["library_ms"] / launches,
                "device_ms_in_step": in_step[key]["device_ms"],
                "profiled_kernels_in_step": in_step[key]["count"]}
-        if key == "convkxk_dw":
-            rec.update(launches_per_step=0, timed_on="bf16, same inputs, "
-                       "convkxk_dw_launch('simt')")
-        if key == "convkxk_dw_tc":
-            rec["simt_ms"] = simt_ms
+        if key in simt_ms:
+            rec.update(launches_per_step=0, timed_on=f"bf16, same inputs, "
+                       f"{launch[key].__name__}('simt')")
+        if key in TC_TWIN:
+            rec["simt_ms"] = simt_ms[TC_TWIN[key]]
         numbers[key] = rec
-        where = " (SIMT on their inputs)" if key == "convkxk_dw" else ""
+        where = " (SIMT on their inputs)" if key in simt_ms else ""
         log(f"[R4] {key} (bf16, mean over the step's {launches} launches"
             f"{where}): "
             f"kernel {ms:.3f} ms (device), plain {rec['plain_ms']:.3f} ms, "
             f"library {rec['library_ms']:.3f} ms (CUDA events); bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) = "
             f"{rec['bound_ms'] / ms * 100:.2f}% of the kernel's time"
-            + (f"; SIMT on the same inputs {simt_ms:.3f} ms (device)"
-               if key == "convkxk_dw_tc" else ""))
+            + (f"; SIMT on the same inputs {rec['simt_ms']:.3f} ms (device)"
+               if key in TC_TWIN else ""))
     return numbers
 
 
@@ -3426,17 +3542,21 @@ def main(argv=None):
         launches[key] += bert_launches[key]
     launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
-    # default), where every 3x3 weight gradient takes the tensor cores; the
-    # SIMT weight gradient: R2's float32 steps; seqpool: the classifier's
-    # counted unfused run
+    # default), where every 3x3 forward and weight gradient takes the
+    # tensor cores; the SIMT forward and weight gradient: R2's float32
+    # steps, and the SIMT forward also the (float32) eval forward; seqpool:
+    # the classifier's counted unfused run
     launches.update(r_main["launches"])
-    dw_by_path = {
-        "convkxk_dw": {"resnet_f32_train": report["resnet_train"][
-            "dw_simt_launches"], "resnet_bf16_step": launches.pop(
-                "convkxk_dw_simt")},
-        "convkxk_dw_tc": {"resnet_f32_train": 0,
-                          "resnet_bf16_step": launches["convkxk_dw_tc"]}}
-    launches["convkxk_dw"] = sum(dw_by_path["convkxk_dw"].values())
+    route_paths = {
+        "resnet_f32_train": report["resnet_train"]["launches"],
+        "resnet_bf16_step": r_main["launches"],
+        "resnet_eval": report["resnet_bench"]["bf16"]["eval"]["launches"]}
+    by_path = {}
+    for tc, simt in TC_TWIN.items():
+        launches.pop(f"{simt}_simt")
+        for name, key in ((tc, tc), (simt, f"{simt}_simt")):
+            by_path[name] = {p: c[key] for p, c in route_paths.items()}
+            launches[name] = sum(by_path[name].values())
     launches["seqpool"] = report["imdb_train"]["unfused"]["launches"][
         "seqpool"]
     worst.update(r_worst)
@@ -3484,9 +3604,9 @@ def main(argv=None):
                              if r["route"] == route] + [train]
         elif name in RESNET_KERNELS:
             rec.update({k: report["resnet_numbers"][name][k] for k in keys})
-            if name in dw_by_path:
-                rec["launches_by_path"] = dw_by_path[name]
-            if name == "convkxk_dw_tc":
+            if name in by_path:
+                rec["launches_by_path"] = by_path[name]
+            if name in TC_TWIN:
                 rec["simt_ms"] = report["resnet_numbers"][name]["simt_ms"]
         elif name in pool_numbers:
             rec.update({k: pool_numbers[name][k] for k in keys})

@@ -2,7 +2,8 @@
 // (sm_90a): the 128-byte-swizzled tile layout that wgmma's shared-memory
 // descriptors read, the descriptors, the bf16 wgmma wrappers with both
 // operands in shared memory, and a cp.async ring of stages. conv_kxk_dw_tc.cu
-// builds on it; the SIMT core (igemm.cuh) stays beside it for float32.
+// and conv_kxk_fwd_tc.cu build on it; the SIMT core (igemm.cuh) stays
+// beside it for float32.
 //
 // The layout: a tile is a set of 64-column blocks, each [rows][64 bf16],
 // one 128-byte row per row; the 16-byte chunk c of row r sits at
@@ -10,7 +11,10 @@
 // rows run along K and whose columns run along M (or N) is "MN-major": the
 // wgmma reads it through its transpose bit, 16 rows (one k16 step, 2048
 // bytes) at a time, with the stride byte offset one atom (1024 bytes) and
-// the leading byte offset one 64-column block.
+// the leading byte offset one 64-column block. A tile whose rows run along
+// M (or N) and whose 64 columns run along K is "K-major": the wgmma reads
+// it as it is (transpose bit 0), a k16 step 32 bytes further along each
+// row, with the stride byte offset one atom.
 
 #pragma once
 
@@ -156,6 +160,77 @@ __device__ __forceinline__ void wgmma_tt(float (&d)[32], uint64_t da,
 __device__ __forceinline__ void wgmma_tt(float (&d)[64], uint64_t da,
                                         uint64_t db, int scale_d) {
   wgmma_tt_n128(d, da, db, scale_d);
+}
+
+// The descriptor of k16 step `kk` (0..3) of a K-major 64-column block at
+// `tile`; the leading byte offset is unused in the swizzled K-major form.
+__device__ __forceinline__ uint64_t k_major_desc(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 32, 16, kAtomBytes);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A K-major and B MN-major in
+// shared memory (only B's transpose bit set); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_nt_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A K-major and B MN-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_nt_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N] with A K-major, N = 64 or 128 by the
+// size of `d`.
+__device__ __forceinline__ void wgmma_nt(float (&d)[32], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  wgmma_nt_n64(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_nt(float (&d)[64], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  wgmma_nt_n128(d, da, db, scale_d);
 }
 
 // A ring of STAGES equal stages of STAGE_BYTES each in dynamic shared

@@ -20,6 +20,12 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
   ``_convkxk_dw``. Each wrapper launches its kernel on CUDA tensors (and
   counts it in its ``launches``), runs its plain version on CPU tensors,
   and raises on anything the kernel does not take.
+- The forward has two kernels, chosen by the pure rule
+  ``kxk_fwd_route``: ``csrc/conv_kxk_fwd_tc.cu`` (wgmma on the tensor
+  cores, the epilogue from the accumulators) for bf16 x and w with C and
+  O multiples of 64 at a 16-byte aligned x, and ``conv_kxk_fwd`` of
+  ``csrc/conv_kxk.cu`` (float32 FMAs) for the rest, float32 among it.
+  ``convkxk_launch`` launches the one it is named, or raises.
 - The weight gradient has two kernels, chosen by the pure rule
   ``dw_route``: ``csrc/conv_kxk_dw_tc.cu`` (wgmma on the tensor cores)
   for bf16 with C and O multiples of 64 at 16-byte aligned bases, and
@@ -143,12 +149,26 @@ def _tc_lib():
     return lib
 
 
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + \
+    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _fwd_tc_lib():
+    from paddle_tpu_torch.core import native_build
+    lib = native_build.load("conv_kxk_fwd_tc")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.conv_kxk_fwd_tc.argtypes = _FWD_ARGTYPES
+        lib.conv_kxk_fwd_tc.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
 def _lib():
     from paddle_tpu_torch.core import native_build
     lib = native_build.load("conv_kxk")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv_kxk_fwd.argtypes = [p, p, p, p, p, p, i, i, p, i, i, p]
+        lib.conv_kxk_fwd.argtypes = _FWD_ARGTYPES
         lib.conv_kxk_dx.argtypes = [p, p, p, i, p, p, p, i, i, p]
         lib.conv_kxk_dw.argtypes = _DW_ARGTYPES
         for fn in (lib.conv_kxk_fwd, lib.conv_kxk_dx, lib.conv_kxk_dw):
@@ -169,12 +189,27 @@ def _raise_on(err, name):
 _KINDS = tuple(DTYPE_CODES)
 
 
-def convkxk_cuda(x, w, scale=None, bias=None, residual=None, relu=False,
-                 stride=(1, 1), padding=((0, 0), (0, 0)), dilation=(1, 1),
-                 out_dtype=None):
-    """Launch ``conv_kxk_fwd``: x NHWC and w OIHW, contiguous CUDA tensors
-    of one dtype (float32 or bfloat16); scale/bias float32 [O]; residual
-    the output's shape. Returns NHWC out in ``out_dtype`` (x's)."""
+def kxk_fwd_route(dtype, c, o, aligned):
+    """The forward kernel a CUDA call takes, by a fixed rule: ``"tc"``
+    (``csrc/conv_kxk_fwd_tc.cu``, wgmma) for bfloat16 x and w (``dtype``:
+    theirs, None when they differ) with C and O multiples of 64 and x at a
+    16-byte aligned base (``aligned``); ``"simt"`` (``conv_kxk_fwd`` of
+    ``csrc/conv_kxk.cu``) for everything else: float32, whose 1e-5 gate
+    no tensor-core input type meets, and other channel counts."""
+    if dtype == torch.bfloat16 and c % 64 == 0 and o % 64 == 0 and aligned:
+        return "tc"
+    return "simt"
+
+
+def convkxk_launch(route, x, w, scale=None, bias=None, residual=None,
+                   relu=False, stride=(1, 1), padding=((0, 0), (0, 0)),
+                   dilation=(1, 1), out_dtype=None):
+    """Launch the forward kernel of ``route`` (``"tc"`` or ``"simt"``) on
+    the inputs ``convkxk_cuda`` takes; count nothing. Returns NHWC out in
+    ``out_dtype`` (x's). Raises on what the kernel does not take and on a
+    launch error: the tensor-core kernel's C entry refuses (and computes
+    nothing for) channels that are not multiples of 64 and misaligned
+    bases."""
     dev = x.device
     geo = geometry(x.shape, w.shape, stride, padding, dilation)
     n, _, _, c, o, kh, kw, oh, ow = geo[:9]
@@ -187,18 +222,51 @@ def convkxk_cuda(x, w, scale=None, bias=None, residual=None, relu=False,
         if t is not None:
             check_operand(name, t, shape, dts, dev)
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    if route == "tc":
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"conv_kxk_fwd_tc takes bfloat16, not {x.dtype}")
+        name, fn = "conv_kxk_fwd_tc", _fwd_tc_lib().conv_kxk_fwd_tc
+    elif route == "simt":
+        name, fn = "conv_kxk_fwd", _lib().conv_kxk_fwd
+    else:
+        raise ValueError(f"no forward route {route!r}")
     wk = w.permute(2, 3, 1, 0).contiguous()          # [KH, KW, C, O]
     out = torch.empty((n, oh, ow, o), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().conv_kxk_fwd(
-            x.data_ptr(), wk.data_ptr(), out.data_ptr(), ptr(scale),
-            ptr(bias), ptr(residual),
-            DTYPE_CODES[residual.dtype] if residual is not None else 0,
-            int(relu), _geo_arg(geo), DTYPE_CODES[x.dtype],
-            DTYPE_CODES[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "conv_kxk_fwd")
-    convkxk.launches += 1
+        err = fn(x.data_ptr(), wk.data_ptr(), out.data_ptr(), ptr(scale),
+                 ptr(bias), ptr(residual),
+                 DTYPE_CODES[residual.dtype] if residual is not None else 0,
+                 int(relu), _geo_arg(geo), DTYPE_CODES[x.dtype],
+                 DTYPE_CODES[out_dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
     return out
+
+
+def convkxk_cuda(x, w, scale=None, bias=None, residual=None, relu=False,
+                 stride=(1, 1), padding=((0, 0), (0, 0)), dilation=(1, 1),
+                 out_dtype=None):
+    """Launch the forward kernel that ``kxk_fwd_route`` picks: x NHWC and
+    w OIHW, contiguous CUDA tensors of one dtype (float32 or bfloat16);
+    scale/bias float32 [O]; residual the output's shape. Returns NHWC out
+    in ``out_dtype`` (x's). Counts the launch in ``convkxk.launches`` and
+    in ``convkxk_cuda.tc_launches`` or ``.simt_launches``. Raises on what
+    the kernel does not take and on a launch error."""
+    dtype = x.dtype if w.dtype == x.dtype else None
+    route = kxk_fwd_route(dtype, x.shape[-1], w.shape[0],
+                          x.data_ptr() % 16 == 0)
+    out = convkxk_launch(route, x, w, scale, bias, residual, relu, stride,
+                         padding, dilation, out_dtype)
+    convkxk.launches += 1
+    if route == "tc":
+        convkxk_cuda.tc_launches += 1
+    else:
+        convkxk_cuda.simt_launches += 1
+    return out
+
+
+convkxk_cuda.tc_launches = 0
+convkxk_cuda.simt_launches = 0
 
 
 def _fold_checks(g, mask, scale, dev, o):

@@ -103,9 +103,9 @@ def test_training_phase_shapes_are_transformer_long():
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
     assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "conv_kxk_dw_tc",
-                                  "flash_bwd", "flash_fwd", "flash_fwd_tc",
-                                  "fused_update", "layer_norm", "pool_fused",
-                                  "seqpool"]
+                                  "conv_kxk_fwd_tc", "flash_bwd", "flash_fwd",
+                                  "flash_fwd_tc", "fused_update", "layer_norm",
+                                  "pool_fused", "seqpool"]
 
 
 def test_permuted_keys_is_the_same_attention():
@@ -164,7 +164,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 14
+    assert len(chip_smoke.KERNELS) == 15
 
 
 def test_kernels_line_has_the_tensor_core_weight_gradient_row():
@@ -177,6 +177,114 @@ def test_kernels_line_has_the_tensor_core_weight_gradient_row():
                    "replaces": "paddle_tpu/kernels/conv_fused.py:506"}
     assert simt["replaces"] == row["replaces"]
     assert "convkxk_dw_tc" in chip_smoke.RESNET_KERNELS
+
+
+def test_kernels_line_has_the_tensor_core_forward_row():
+    """The 15th row: the second implementation of the TPU kernel that the
+    SIMT 3x3 forward replaces, built from its own source, and both rows
+    among the ResNet kernels, each the other's twin."""
+    row, simt = chip_smoke.KERNELS["convkxk_tc"], chip_smoke.KERNELS["convkxk"]
+    assert row == {"route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
+                   "replaces": "paddle_tpu/kernels/conv_fused.py:241"}
+    assert simt["replaces"] == row["replaces"]
+    assert {"convkxk", "convkxk_tc"} <= set(chip_smoke.RESNET_KERNELS)
+    assert chip_smoke.TC_TWIN == {"convkxk_tc": "convkxk",
+                                  "convkxk_dw_tc": "convkxk_dw"}
+    assert "conv_kxk_fwd_tc" in chip_smoke.SOURCES
+
+
+def test_profile_symbols_tell_the_forward_routes_apart():
+    """The tensor-core forward's symbol names its kernel and nothing of the
+    SIMT forward or of either weight gradient; the SIMT forward's loader
+    name is in neither tensor-core kernel's name."""
+    sym, kern = chip_smoke.R_SYMBOLS["convkxk_tc"], chip_smoke.FWD_TC_KERNEL
+    simt = chip_smoke.R_SYMBOLS["convkxk"]
+    assert sym == "conv_kxk_fwd_tc" and kern == sym + "_kernel"
+    assert simt == "XRows"
+    fwd_name = ("void (anonymous namespace)::conv_kxk_fwd_tc_kernel<128>("
+                "__nv_bfloat16 const*, __nv_bfloat16 const*)")
+    dw_name = ("void (anonymous namespace)::conv_kxk_dw_tc_kernel<128, "
+               "false>(__nv_bfloat16 const*)")
+    simt_name = ("void igemm::gemm_kernel<128, (anonymous namespace)::XRows"
+                 "<__nv_bfloat16>, igemm::DenseB<__nv_bfloat16> >()")
+    assert kern in fwd_name and simt not in fwd_name
+    assert sym not in dw_name + simt_name
+    for other in ("convkxk_dx", "convkxk_dw", "convkxk_dw_tc", "brgemm"):
+        assert chip_smoke.R_SYMBOLS[other] not in fwd_name
+    tc_in_step = chip_smoke.TC_IN_STEP
+    assert tc_in_step == {kern: 16, simt: 0, chip_smoke.DW_TC_KERNEL: 16,
+                          chip_smoke.R_SYMBOLS["convkxk_dw"]: 0}
+
+
+@pytest.mark.parametrize("dtype,base,tc,simt", [
+    (torch.bfloat16, "R_PER_STEP", 16, 0),
+    (torch.float32, "R_PER_STEP", 0, 16),
+    (torch.bfloat16, "R_POOL_OFF", 16, 0),
+    (torch.bfloat16, "R_EVAL", 16, 0),
+    (torch.float32, "R_EVAL", 0, 16),
+], ids=["bf16_step", "f32_step", "bf16_pool_off", "bf16_eval", "f32_eval"])
+def test_fwd_routes_split_the_3x3_forwards_by_dtype(dtype, base, tc, simt):
+    counts = getattr(chip_smoke, base)
+    want = chip_smoke.routes(dtype, counts, ("convkxk",))
+    assert (want["convkxk_tc"], want["convkxk_simt"]) == (tc, simt)
+    assert want["convkxk"] == tc + simt
+    assert {k: v for k, v in want.items()
+            if k not in ("convkxk_tc", "convkxk_simt")} == counts
+    both = chip_smoke.routes(dtype, counts)
+    assert both == dict(chip_smoke.routes(dtype, counts, ("convkxk_dw",)),
+                        convkxk_tc=tc, convkxk_simt=simt)
+
+
+def test_eval_forward_reaches_the_3x3_convs_in_float32(monkeypatch):
+    """R3's eval gate expects the eval forward's 16 3x3 forwards on the
+    SIMT kernel: in the pure bf16 bench model they see float32 (the stem's
+    BatchNorm promotes the activation), while the training step's see
+    bf16 (the tensor cores)."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.ops import nn_ops
+    monkeypatch.setattr(nn_ops, "CONV_FUSED", True)
+    seen, plain = [], cf.convkxk_reference
+
+    def spy(x, w, *args, **kwargs):
+        seen.append((x.dtype, w.dtype))
+        return plain(x, w, *args, **kwargs)
+
+    monkeypatch.setattr(cf, "convkxk_reference", spy)
+    model, params, opt, state, x, labels = bench.build(2, 64, "", "cpu")
+    bench.train_step(model, params, opt, state, x, labels)
+    assert seen == [(torch.bfloat16, torch.bfloat16)] * 16
+    seen.clear()
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    assert seen == [(chip_smoke.EVAL_DTYPE, chip_smoke.EVAL_DTYPE)] * 16
+    assert cf.kxk_fwd_route(chip_smoke.EVAL_DTYPE, 64, 64, True) == "simt"
+
+
+def test_resnet_3x3_forwards_take_the_route_the_script_asserts():
+    """R1 and R3 assert every 3x3 forward of ResNet-50 on the tensor cores
+    in bf16 and on SIMT in float32: the port's rule says so for every 3x3
+    shape of the step; the further R1 cases are bf16 tc shapes that cover
+    a dilation, an M that is no multiple of the 128-row tile, three
+    64-column tiles, a float32 output and the eval chain."""
+    from paddle_tpu_torch.kernels.conv_fused import kxk_fwd_route
+    for h, c, o, k, s in chip_smoke.resnet50_conv_shapes():
+        if k == 3:
+            assert kxk_fwd_route(torch.bfloat16, c, o, True) == "tc"
+            assert kxk_fwd_route(torch.float32, c, o, True) == "simt"
+    cases = {c[0]: c for c in chip_smoke.R1_FWD_TC_CASES}
+    assert cases["dilated"][3] == 2
+    _, (h, c, o, k, s), batch, _, _, _ = cases["ragged_m"]
+    oh = (h - 1) // s + 1
+    assert batch * oh * oh % 128 != 0
+    assert cases["o192"][1][2] == 192
+    assert cases["f32_out"][5] == torch.float32
+    assert cases["eval_chain"][4] and cases["eval_chain"][1] == \
+        (7, 512, 512, 3, 1)
+    for _, (h, c, o, k, s), *_ in cases.values():
+        assert kxk_fwd_route(torch.bfloat16, c, o, True) == "tc"
 
 
 def test_profile_symbols_tell_the_weight_gradient_routes_apart():
@@ -205,7 +313,7 @@ def test_profile_symbols_tell_the_weight_gradient_routes_apart():
 def test_dw_routes_split_the_weight_gradients_by_dtype(dtype, base, tc,
                                                        simt):
     counts = getattr(chip_smoke, base)
-    want = chip_smoke.dw_routes(dtype, counts)
+    want = chip_smoke.routes(dtype, counts, ("convkxk_dw",))
     assert (want["convkxk_dw_tc"], want["convkxk_dw_simt"]) == (tc, simt)
     assert want["convkxk_dw"] == tc + simt
     assert {k: v for k, v in want.items()

@@ -4,6 +4,8 @@ kernels (interpret mode), on the CPU.
 - ``tiles.brgemm`` (kernel #4): modes "nn" and "tn", each epilogue link
   (scale, bias, residual, relu) and the cotangent fold (relu mask from a
   saved output, then a per-channel scale) on a and on b.
+- ``conv_fused.kxk_fwd_route`` and ``dw_route``: the rules that send a
+  bf16 3x3 forward and weight gradient to the tensor-core kernels.
 - ``conv_fused.conv2d_bn_act`` (#4 for 1x1, #6-#8 for KxK): the output and
   the gradients of x, w, scale, bias and residual over the grid of
   ``tests/test_conv_fused.py`` (ks 1/3, stride 1/2, residual, act), odd
@@ -176,6 +178,21 @@ def test_dw_route_takes_the_tensor_cores_only_where_they_fit(dtype, c, o,
     assert pcf.dw_route(dtype, c, o, aligned) == route
 
 
+@pytest.mark.parametrize("dtype,c,o,aligned,route", [
+    (torch.bfloat16, 64, 64, True, "tc"),
+    (torch.bfloat16, 512, 512, True, "tc"),
+    (torch.float32, 64, 64, True, "simt"),
+    (torch.bfloat16, 16, 64, True, "simt"),
+    (torch.bfloat16, 64, 70, True, "simt"),
+    (None, 64, 64, True, "simt"),
+    (torch.bfloat16, 64, 64, False, "simt"),
+], ids=["bf16_64", "bf16_512", "f32", "c16", "o70", "f32_w_beside_bf16_x",
+        "misaligned"])
+def test_kxk_fwd_route_takes_the_tensor_cores_only_where_they_fit(
+        dtype, c, o, aligned, route):
+    assert pcf.kxk_fwd_route(dtype, c, o, aligned) == route
+
+
 # (m, n, k) of ResNet-50's 3x3 weight gradients at batch 256 (M = 9C, N = O,
 # K = N*OH*OW), and short and ragged K
 TC_SPLIT_CASES = [(576, 64, 802816), (1152, 128, 200704), (2304, 256, 50176),
@@ -300,6 +317,17 @@ def test_conv2d_bn_act_bf16_at_a_tensor_core_dw_shape(stride):
     mode, with the output and the other gradients."""
     assert pcf.dw_route(torch.bfloat16, 64, 64, True) == "tc"
     args = _conv_inputs(2, 8, 64, 64, 3, False, "bf16", stride, 1, seed=4)
+    _assert_pair(*_conv_pair(args, "relu", stride, 1, "bf16"), 0.1, 0.1)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv2d_bn_act_bf16_eval_chain_at_a_tensor_core_fwd_shape(stride):
+    """C = O = 64, 3x3, scale, bias, residual and relu: the eval chain at
+    a shape whose bf16 forward takes the tensor cores on the card. Here
+    the port's forward (and its gradients) against the JAX ``_convkxk``
+    in interpret mode."""
+    assert pcf.kxk_fwd_route(torch.bfloat16, 64, 64, True) == "tc"
+    args = _conv_inputs(2, 8, 64, 64, 3, True, "bf16", stride, 1, seed=5)
     _assert_pair(*_conv_pair(args, "relu", stride, 1, "bf16"), 0.1, 0.1)
 
 

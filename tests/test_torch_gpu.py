@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
 forward (both routes, the SIMT kernel and the tensor-core kernel, and the
 rule that picks one) and backward, the fused optimizer update, the conv
-kernels (the 3x3 weight gradient's two routes and the rule that picks
-one among them), the fused max pool, the embedding seqpool and the row
+kernels (the 3x3 forward's and weight gradient's two routes each and the
+rules that pick one among them), the fused max pool, the embedding
+seqpool and the row
 LayerNorm against their plain versions, and the kernel launches of a
 tiny BERT step.
 
@@ -558,6 +559,117 @@ def test_dw_tc_launch_raises_and_never_falls_back(cuda):
     with pytest.raises(ValueError):
         cf.convkxk_dw_launch("wgmma", *c16)
     assert (_dw_routes(cf), cf.convkxk_dw.launches) == before
+
+
+# -- the tensor-core 3x3 forward (csrc/conv_kxk_fwd_tc.cu) --------------------
+
+# (h, c, o, stride, dilation, epilogue, batch): C = O = 64 and 128, stride 1
+# and 2, with and without the epilogue (scale, bias, residual, relu),
+# dilated, a ragged M (3 x 5 x 5 = 75 positions) and O = 192 (three
+# 64-column tiles)
+FWD_TC_CASES = [(9, 64, 64, 1, 1, False, 2), (9, 64, 64, 2, 1, True, 2),
+                (8, 128, 128, 1, 1, True, 2), (8, 128, 128, 2, 1, False, 3),
+                (12, 64, 64, 1, 2, True, 2), (9, 64, 64, 2, 1, False, 3),
+                (7, 128, 192, 1, 1, True, 2)]
+
+
+def _fwd_case(dev, h, c, o, stride, dil, epi, batch, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pad = dil
+    oh = (h + 2 * pad - 2 * dil - 1) // stride + 1
+    x = torch.randn(batch, h, h, c, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(o, c, 3, 3, device=dev, generator=gen)
+         * (9 * c) ** -0.5).bfloat16()
+    scale = bias = res = None
+    if epi:
+        scale = torch.rand(o, device=dev, generator=gen) + 0.5
+        bias = torch.randn(o, device=dev, generator=gen)
+        res = torch.randn(batch, oh, oh, o, device=dev,
+                          generator=gen).bfloat16()
+    return (x, w, scale, bias, res, epi, (stride, stride),
+            ((pad, pad), (pad, pad)), (dil, dil))
+
+
+def _fwd_routes(cf):
+    return cf.convkxk_cuda.tc_launches, cf.convkxk_cuda.simt_launches
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("case", FWD_TC_CASES, ids=str)
+def test_fwd_tc_route_matches_plain_version(cuda, case):
+    """bf16 at the gate of chip_smoke's R1 (2e-2 of max |plain|): one
+    float32 sum in another order, one bf16 rounding; with a float32
+    output too."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    args = _fwd_case(cuda, *case)
+    for out_dtype in (None, torch.float32):
+        before = _fwd_routes(cf)
+        got = cf.convkxk_cuda(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert _fwd_routes(cf) == (before[0] + 1, before[1])
+        ref = cf.convkxk_reference(*args, out_dtype=out_dtype)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) < 2e-2, out_dtype
+
+
+def test_fwd_route_counters_follow_the_rule(cuda):
+    """Of CONV_SHAPES' 3x3 convs, (8, 64, 64, 3, 2) takes the tensor cores
+    in bf16 and the rest (C = 16 or 3, O = 70 or 130) SIMT; float32 and an
+    x off 16 bytes take SIMT. Every launch counts in ``convkxk.launches``
+    too."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    cases = []
+    for shape in CONV_SHAPES:
+        if shape[3] != 3:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            want = "tc" if dtype == torch.bfloat16 and shape == (
+                8, 64, 64, 3, 2) else "simt"
+            cases.append((_conv_case(cuda, shape, dtype, False), want))
+    for calls, want in cases:
+        kern, plain = calls["convkxk"]
+        before, n = _fwd_routes(cf), cf.convkxk.launches
+        got = kern()
+        torch.cuda.synchronize()
+        assert _fwd_routes(cf) == ((before[0] + 1, before[1]) if want == "tc"
+                                   else (before[0], before[1] + 1))
+        assert cf.convkxk.launches == n + 1
+        ref = plain()
+        tol = 1e-5 if got.dtype == torch.float32 else 2e-2
+        assert _rel_err(got, ref) < tol
+    args = list(_fwd_case(cuda, 8, 64, 64, 1, 1, False, 2))
+    buf = torch.empty(args[0].numel() + 1, device=cuda, dtype=torch.bfloat16)
+    off = buf[1:].view(args[0].shape)        # 2 bytes past an aligned base
+    off.copy_(args[0])
+    args[0] = off
+    before = _fwd_routes(cf)
+    got = cf.convkxk_cuda(*args)
+    torch.cuda.synchronize()
+    assert _fwd_routes(cf) == (before[0], before[1] + 1)
+    assert _rel_err(got, cf.convkxk_reference(*args)) < 2e-2
+
+
+def test_fwd_tc_launch_raises_and_never_falls_back(cuda):
+    """The tensor-core forward's wrapper refuses float32 and its C entry
+    C = 16: the launch raises, and no other kernel or plain version runs in
+    its place."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    f32 = list(_fwd_case(cuda, 8, 64, 64, 1, 1, False, 2))
+    f32[0], f32[1] = f32[0].float(), f32[1].float()
+    c16 = _fwd_case(cuda, 8, 16, 64, 1, 1, False, 2)
+    before = _fwd_routes(cf), cf.convkxk.launches
+    with pytest.raises(TypeError):
+        cf.convkxk_launch("tc", *f32)
+    with pytest.raises(RuntimeError, match="conv_kxk_fwd_tc launch failed"):
+        cf.convkxk_launch("tc", *c16)
+    with pytest.raises(ValueError):
+        cf.convkxk_launch("wgmma", *c16)
+    assert (_fwd_routes(cf), cf.convkxk.launches) == before
 
 
 def test_max_pool_ties_on_nhwc_cuda_tensors_take_the_first_max(cuda):

@@ -184,6 +184,25 @@ def test_batch_norm_inference_branch_matches_jax():
                                atol=1e-5)
 
 
+def test_batch_norm_inference_promotes_bfloat16_as_jax_does():
+    """A bfloat16 activation through the inference branch with float32
+    running stats comes out float32 in both packages (bf16 x minus the
+    float32 mean promotes), so an eval forward's later convs see float32
+    in the reference as in the port."""
+    x, scale, bias, mean, var, _, _ = _bn_case("bf16", seed=2)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = jn.batch_norm(jx, jnp.asarray(scale), jnp.asarray(bias),
+                        jnp.asarray(mean), jnp.asarray(var), is_test=True,
+                        data_format="NHWC", act="relu")
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
+    got = pn.batch_norm(tx, torch.from_numpy(scale), torch.from_numpy(bias),
+                        torch.from_numpy(mean), torch.from_numpy(var),
+                        is_test=True, data_format="NHWC", act="relu")
+    assert ref.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("lowp", ["", "bnres"])
 def test_bnres_token_pins_the_batchnorm_residual_mode(lowp):
     """The "bnres" token turns the layer's BatchNorm to the fp8 residual
