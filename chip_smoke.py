@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. build    every kernel of the paths from ``paddle_tpu_torch/csrc`` (one
             ``nvcc`` per source, all started together); ``cuobjdump -sass``
             must find wgmma (``HGMMA``) in every function of the
-            tensor-core flash forward, of the tensor-core 3x3 forward and
-            of the tensor-core weight gradient;
+            tensor-core flash forward, of the tensor-core dK/dV backward,
+            of the tensor-core 3x3 forward and of the tensor-core weight
+            gradient;
 
 Then the ResNet-50 path (``paddle_tpu_torch/bench.py``'s step with the conv
 kernels on: ``csrc/brgemm.cu`` for the 1x1 convs, ``csrc/conv_kxk.cu`` for
@@ -98,8 +99,9 @@ B1. train    BERT-base float32 at full width and depth, batch 8 x 128,
              after step 3 within twice the floor; launches counted a step;
 B2. bench    the bench step at batch 32 x 128 bf16 as the bench defines it
              (``use_pallas=False``: no kernel of the port) and with
-             ``use_pallas=True`` (12 flash forward, dQ and dK/dV a step, no
-             row LayerNorm, no fused update): 2 warm-up and 10 timed steps
+             ``use_pallas=True`` (12 flash forward, dQ and dK/dV a step, the
+             forward and dK/dV on the tensor cores, no row LayerNorm, no
+             fused update): 2 warm-up and 10 timed steps
              each, tokens/s and MFU, the forward and backward and the
              update timed apart, one profiled step each (idle share, top
              kernels).
@@ -169,8 +171,13 @@ outputs, flash attention, batch 4 x 4096, Adam):
 T1. kernels  the flash forward (route counted) and then the backward's dq
              and dk/dv kernels, fed that forward's o and lse, against their
              plain versions at the path's flash shape [4*8, 4096, 4096, 64],
-             at BERT's, at a ragged masked shape and at a causal one, in
-             float32 and bfloat16; the fused
+             at BERT's, at a ragged masked shape, at a causal one (the
+             tensor-core dK/dV skips the query tiles before a key tile),
+             causal with a kv mask (no skip), at D = 16 and 32 and at
+             D = 128, in float32 and bfloat16, the dK/dV route counted:
+             ``dkv_route``'s tensor cores (``csrc/flash_bwd_dkv_tc.cu``)
+             for bf16 with D <= 64, the SIMT kernel for float32 and
+             D = 128; the fused
              optimizer update against the plain unfused sweep (Adam on the
              transformer_long parameters, SGD, Momentum with a global-norm
              clip and AdamW on a small tree): moments bitwise, parameters
@@ -184,18 +191,19 @@ T2. train    three Adam steps in float32 with the fused update, three with
              routes (two more runs), the key biases within
              ``ADAM_PAIR_BOUND``; the parameters after step 1 equal
              wherever the two gradients agree; kernel launches counted per
-             step (12
-             flash forward, on the SIMT kernel in float32 and the tensor
-             cores in bf16, 12 dq, 12 dk/dv, one fused update); loss and
-             gradients of remat "save_flash", "none" (24 forward launches)
-             and no remat held equal; three bf16 steps reported;
+             step (12 flash forward and 12 dk/dv, each on its SIMT kernel
+             in float32 and on the tensor cores in bf16, 12 dq, one fused
+             update); loss and gradients of remat "save_flash", "none"
+             (24 forward launches) and no remat held equal; three bf16
+             steps reported;
 T3. numbers  one profiled bf16 training step: step time, tokens/s, device
              busy time and idle share, top kernels (12 tensor-core forward
-             launches, no SIMT one), and each kernel's device time at the
-             path's shape; beside it its bound, and its plain version and a
-             library yardstick that the port never calls (SDPA forward and
-             backward, ``torch.optim.Adam(fused=True)``) timed with CUDA
-             events, and the SIMT forward on the same inputs.
+             and 12 tensor-core dk/dv launches, no SIMT one of either), and
+             each kernel's device time at the path's shape; beside it its
+             bound, and its plain version and a library yardstick that the
+             port never calls (SDPA forward and backward,
+             ``torch.optim.Adam(fused=True)``) timed with CUDA events, and
+             the SIMT forward and dk/dv on the same inputs.
 
 The last lines are the ``{"kernels": [...]}`` object, the card's name and
 power limit as ``nvidia-smi`` gives them, and the result object
@@ -246,6 +254,12 @@ KERNELS = {
     "flash_bwd_dkv": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "paddle_tpu/kernels/attention.py:367",
+    },
+    # the same TPU kernel's second implementation: bf16 on the tensor cores
+    "flash_bwd_dkv_tc": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_bwd_dkv_tc.cu",
         "replaces": "paddle_tpu/kernels/attention.py:367",
     },
     "fused_update": {
@@ -341,18 +355,28 @@ def expect_route(dtype, tq, d):
         else "simt"
 
 
-def route_counts():
+def expect_dkv_route(dtype, d):
+    """The dK/dV kernel a check must see launched (contiguous, aligned
+    inputs): the tensor-core kernel for bf16 with D a multiple of 16 in
+    16..64; the SIMT kernel for float32 and D = 128."""
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 and \
+        16 <= d <= 64 else "simt"
+
+
+def route_counts(kernel="flash_fwd"):
+    """The launches of ``kernel`` ("flash_fwd" or "flash_bwd_dkv") so far,
+    by route."""
     counts = train_counts()
-    return {"tc": counts["flash_fwd_tc"], "simt": counts["flash_fwd_simt"]}
+    return {"tc": counts[f"{kernel}_tc"], "simt": counts[f"{kernel}_simt"]}
 
 
-def check_route(phase, name, before, want, calls=1):
-    """Fail unless the ``calls`` forward launches since ``before`` (a
-    ``route_counts()``) all took route ``want``."""
-    after = route_counts()
+def check_route(phase, name, before, want, calls=1, kernel="flash_fwd"):
+    """Fail unless the ``calls`` launches of ``kernel`` since ``before`` (a
+    ``route_counts(kernel)``) all took route ``want``."""
+    after = route_counts(kernel)
     got = {r: after[r] - before[r] for r in after}
     if got != {r: calls if r == want else 0 for r in got}:
-        fail(phase, f"{name}: forward launches by route {got}, expected "
+        fail(phase, f"{name}: {kernel} launches by route {got}, expected "
                     f"{calls} on {want}")
 
 
@@ -421,8 +445,8 @@ def phase_build():
             "per_kernel": {n: i["seconds"]
                            for n, i in native_build.build_info.items()},
             "sass": {name: sass_check(paths[name], f"{name}_kernel", "HGMMA")
-                     for name in ("flash_fwd_tc", "conv_kxk_fwd_tc",
-                                  "conv_kxk_dw_tc")}}
+                     for name in ("flash_fwd_tc", "flash_bwd_dkv_tc",
+                                  "conv_kxk_fwd_tc", "conv_kxk_dw_tc")}}
 
 
 def sass_check(lib, symbol, opcode):
@@ -923,10 +947,28 @@ BWD_CHECK_SHAPES = [
     BERT_TRAIN_FLASH,
     ("masked_ragged", 3, 4, 200, 300, 64, False, "ragged"),
     ("causal", 2, 8, 512, 512, 64, True, None),
+    # the tensor-core dK/dV's other padded widths (Tq, Tk off its tiles),
+    # causal with a kv mask (no query tile skipped), D = 128, whose bf16
+    # dK/dV takes the SIMT kernel, and a batch entry whose keys are all
+    # masked (p = 1 on every key: dS = dP - dvec, undamped)
+    ("d16", 2, 4, 100, 130, 16, False, None),
+    ("d32_causal", 2, 4, 256, 256, 32, True, None),
+    ("causal_masked", 2, 4, 300, 300, 64, True, "ragged"),
+    ("d128", 2, 4, 200, 200, 128, False, "ragged"),
+    ("all_pad_causal", 2, 4, 130, 150, 64, True, "padding"),
 ]
 # relative to (1 + |plain|): float32 sums of up to 4096 terms in another
 # order; bfloat16 outputs round once more (2^-8 relative)
 BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# and relative to the plain gradient's own size, max|kernel - plain| /
+# max|plain|: where the gradient's elements are far below 1 (dK and dV at
+# the training shape, each key's p ~ 1/4096) the gate above is near an
+# absolute 2e-2, as large as the values, and passes a kernel that drops a
+# query tile or a share of its sums; this one does not. Limits: bf16 about
+# twice the worst reading of the sound kernels on an H100 (7.2e-3, dv at
+# the causal 512 shape; PERF.md §6); float32 read 0 (the SIMT kernels
+# equal plain), held at the size of float32 sums taken in another order.
+BWD_SCALED_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1.5e-2}
 ADAM_FLOPS_PER_ELEMENT = 14     # the kernel's Adam expression, per element
 # T2's float32 gates, kernel route against the plain route. The routes
 # differ only in the order of the attention's float32 sums, and a leaf's
@@ -960,16 +1002,20 @@ _COUNTED = {}
 def counted_wrappers():
     """(wrapper, attribute) that counts each kernel's launches, taken once,
     before ``plain_kernels`` swaps any of them out: every forward launch,
-    each forward route's, the backward kernels' and the fused update's."""
+    each forward route's, the backward kernels' (every dK/dV launch and
+    each dK/dV route's) and the fused update's."""
     if not _COUNTED:
         from paddle_tpu_torch.kernels import attention as A
         from paddle_tpu_torch.kernels import fused_update as FU
-        _COUNTED.update(flash_fwd=(A.flash_attention, "launches"),
-                        flash_fwd_tc=(A.flash_fwd_cuda, "tc_launches"),
-                        flash_fwd_simt=(A.flash_fwd_cuda, "simt_launches"),
-                        flash_bwd_dq=(A.flash_bwd_dq_cuda, "launches"),
-                        flash_bwd_dkv=(A.flash_bwd_dkv_cuda, "launches"),
-                        fused_update=(FU.fused_update_step, "launches"))
+        _COUNTED.update(
+            flash_fwd=(A.flash_attention, "launches"),
+            flash_fwd_tc=(A.flash_fwd_cuda, "tc_launches"),
+            flash_fwd_simt=(A.flash_fwd_cuda, "simt_launches"),
+            flash_bwd_dq=(A.flash_bwd_dq_cuda, "launches"),
+            flash_bwd_dkv=(A.flash_bwd_dkv_cuda, "launches"),
+            flash_bwd_dkv_tc=(A.flash_bwd_dkv_cuda, "tc_launches"),
+            flash_bwd_dkv_simt=(A.flash_bwd_dkv_cuda, "simt_launches"),
+            fused_update=(FU.fused_update_step, "launches"))
     return _COUNTED
 
 
@@ -982,17 +1028,24 @@ def zero_counts():
         setattr(f, a, 0)
 
 
-def fwd_counts(n, dtype):
-    """The forward's counts for ``n`` calls at shapes whose bf16 route is
-    the tensor cores (the training paths'): all on that route in bf16, all
-    on the SIMT kernel in float32."""
+def fwd_counts(n, dtype, kernel="flash_fwd"):
+    """The counts of ``kernel`` (the forward, or "flash_bwd_dkv") for ``n``
+    calls at shapes whose bf16 route is the tensor cores (the training
+    paths'): all on that route in bf16, all on the SIMT kernel in
+    float32."""
     tc = n if dtype == torch.bfloat16 else 0
-    return {"flash_fwd": n, "flash_fwd_tc": tc, "flash_fwd_simt": n - tc}
+    return {kernel: n, f"{kernel}_tc": tc, f"{kernel}_simt": n - tc}
+
+
+def dkv_counts(n, dtype):
+    return fwd_counts(n, dtype, "flash_bwd_dkv")
 
 
 class plain_kernels:
     """Route the flash kernels to their plain versions, behind the same
-    wrappers, autograd op and remat policy."""
+    wrappers, autograd op and remat policy: the forward, dQ and dK/dV
+    (both of its routes, which ``flash_bwd_dkv_cuda`` picks between) count
+    no launch."""
 
     def __enter__(self):
         from paddle_tpu_torch.kernels import attention as A
@@ -1062,6 +1115,23 @@ def bwd_inputs(shape, dtype, dev, seed):
     return q, k, v, m, do, o, lse, dvec
 
 
+def bwd_errors(got, ref):
+    """A gradient against its plain version: the largest difference, that
+    difference relative to (1 + |plain|) element by element, and relative
+    to the largest |plain|."""
+    diff = (got.float() - ref.float()).abs()
+    top = diff.max().item()
+    return {"max_abs_err": top,
+            "rel_err": (diff / (1 + ref.float().abs())).max().item(),
+            "scaled_err": top / max(ref.float().abs().max().item(), 1e-30)}
+
+
+def bwd_within(err, dtype):
+    """Both of T1's backward gates, on a ``bwd_errors`` record."""
+    return err["rel_err"] <= BWD_TOLERANCE[dtype] and \
+        err["scaled_err"] <= BWD_SCALED_TOLERANCE[dtype]
+
+
 def phase_train_kernels(dev, seed):
     """T1a: the forward (on the route its inputs take, counted) against its
     plain version at every shape, then dq and dkv, fed that forward's o and
@@ -1095,38 +1165,53 @@ def phase_train_kernels(dev, seed):
                 worst["flash_fwd_tc"] = diff.max().item()
             del o, ro, rl, diff
             dq = flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, m)
+            dkv_routes = route_counts("flash_bwd_dkv")
+            dkv_route = expect_dkv_route(dtype, d)
             dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale,
                                         m)
             torch.cuda.synchronize()
+            check_route("T1", f"{name} {dtype}", dkv_routes, dkv_route,
+                        kernel="flash_bwd_dkv")
             want = flash_attention_bwd_reference(q, k, v, do, lse, dvec,
                                                  causal, scale, m)
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
-                   "shape": [b, h, tq, tk, d], "causal": causal}
+                   "shape": [b, h, tq, tk, d], "causal": causal,
+                   "dkv_route": dkv_route}
             ok = True
             for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-                diff = (got.float() - ref.float()).abs()
-                rel = (diff / (1 + ref.float().abs())).max().item()
-                rec[nm] = {"max_abs_err": diff.max().item(), "rel_err": rel}
+                rec[nm] = bwd_errors(got, ref)
                 ok = ok and bool(torch.isfinite(got).all()) and \
-                    rel <= BWD_TOLERANCE[dtype]
+                    bwd_within(rec[nm], dtype)
             rec["ok"] = ok
             results.append(rec)
             log(f"[T1] flash_bwd {rec['dtype']:>8} {name:<14} "
-                f"[{b},{h},{tq},{tk},{d}] max|kernel-plain| dq "
+                f"[{b},{h},{tq},{tk},{d}] dk/dv on {dkv_route}; "
+                f"max|kernel-plain| dq "
                 f"{rec['dq']['max_abs_err']:.3e} dk "
                 f"{rec['dk']['max_abs_err']:.3e} dv "
                 f"{rec['dv']['max_abs_err']:.3e}; rel "
                 f"{max(rec[n]['rel_err'] for n in ('dq', 'dk', 'dv')):.3e} "
-                f"(tol {BWD_TOLERANCE[dtype]:g}) {'ok' if ok else 'MISMATCH'}")
+                f"(tol {BWD_TOLERANCE[dtype]:g}); of max|plain| dq "
+                f"{rec['dq']['scaled_err']:.3e} dk "
+                f"{rec['dk']['scaled_err']:.3e} dv "
+                f"{rec['dv']['scaled_err']:.3e} "
+                f"(tol {BWD_SCALED_TOLERANCE[dtype]:g}) "
+                f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail("T1", f"flash_bwd {rec}")
-            if dtype == torch.bfloat16 and (shape is TRAIN_FLASH or
-                                            shape is BERT_TRAIN_FLASH):
-                worst["flash_bwd_dq"] = max(worst.get("flash_bwd_dq", 0.0),
-                                            rec["dq"]["max_abs_err"])
-                worst["flash_bwd_dkv"] = max(worst.get("flash_bwd_dkv", 0.0),
-                                             rec["dk"]["max_abs_err"],
-                                             rec["dv"]["max_abs_err"])
+            # the kernels line's errors at the paths' shapes: dq in bf16;
+            # dK/dV by route, the tensor cores' in bf16 and the SIMT
+            # kernel's in float32, the paths where its route still runs
+            if shape is TRAIN_FLASH or shape is BERT_TRAIN_FLASH:
+                if dtype == torch.bfloat16:
+                    worst["flash_bwd_dq"] = max(
+                        worst.get("flash_bwd_dq", 0.0),
+                        rec["dq"]["max_abs_err"])
+                key = "flash_bwd_dkv_tc" if dkv_route == "tc" \
+                    else "flash_bwd_dkv"
+                worst[key] = max(worst.get(key, 0.0),
+                                 rec["dk"]["max_abs_err"],
+                                 rec["dv"]["max_abs_err"])
             del q, k, v, do, dq, dk, dv, want
             torch.cuda.empty_cache()
     return results, worst
@@ -1401,7 +1486,7 @@ def phase_train(model32, dev, seed):
     # one flash call per encoder layer and per cross-attention: 12
     calls = 2 * LONG_CFG["n_layer"]
     per_step = {**fwd_counts(calls, torch.float32), "flash_bwd_dq": calls,
-                "flash_bwd_dkv": calls, "fused_update": 1}
+                **dkv_counts(calls, torch.float32), "fused_update": 1}
     zero_counts()
     out, runs = {}, {}
     for fused in (True, False):
@@ -1484,7 +1569,8 @@ def phase_train(model32, dev, seed):
     model_bf.load_state_dict(init)
     before = train_counts()
     losses, _ = train_steps(model_bf, batch, STEPS, True, dict(
-        per_step, **fwd_counts(calls, torch.bfloat16)))
+        per_step, **fwd_counts(calls, torch.bfloat16),
+        **dkv_counts(calls, torch.bfloat16)))
     for k, v in train_counts().items():
         path_counts[k] += v - before[k]
     out["bf16_losses"] = losses
@@ -1525,11 +1611,15 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
                   "flash_fwd_tc": "flash_fwd_tc_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                  "flash_bwd_dkv_tc": "flash_bwd_dkv_tc_kernel",
                   "fused_update": "fused_update_kernel"}
-# the kernels of a bf16 transformer_long step (its forward on the tensor
-# cores)
-T3_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv",
+# the kernels of a bf16 transformer_long step (its forward and dK/dV on the
+# tensor cores)
+T3_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv_tc",
               "fused_update")
+# each flash kernel on the tensor cores and its SIMT twin
+FLASH_TC_TWIN = {"flash_fwd_tc": "flash_fwd",
+                 "flash_bwd_dkv_tc": "flash_bwd_dkv"}
 
 
 def phase_train_numbers(model32, model_bf, batch, dev, seed):
@@ -1563,10 +1653,12 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         step()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    busy, kernels, prof_ms = profiled(
-        step, "the training step",
-        expect={KERNEL_SYMBOLS["flash_fwd_tc"]: 2 * LONG_CFG["n_layer"],
-                KERNEL_SYMBOLS["flash_fwd"]: 0})
+    calls = 2 * LONG_CFG["n_layer"]
+    expect = {}
+    for tc, simt in FLASH_TC_TWIN.items():
+        expect.update({KERNEL_SYMBOLS[tc]: calls, KERNEL_SYMBOLS[simt]: 0})
+    busy, kernels, prof_ms = profiled(step, "the training step",
+                                      expect=expect)
     step_ms = sum(wall) / len(wall)
     by_kernel = {}
     for key in T3_KERNELS:
@@ -1576,12 +1668,12 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
                           "device_ms": sum(r[2] for r in rows)}
         if by_kernel[key]["count"] == 0:
             fail("T3", f"the profile of the step shows no {sym}")
-    n_fwd = by_kernel["flash_fwd_tc"]["count"]
-    n_simt = sum(r[1] for r in kernels if KERNEL_SYMBOLS["flash_fwd"] in r[0])
-    if n_fwd != 2 * LONG_CFG["n_layer"] or n_simt:
-        fail("T3", f"the bf16 step ran {n_fwd} tensor-core and {n_simt} "
-                   f"SIMT forward launches, expected "
-                   f"{2 * LONG_CFG['n_layer']} and 0")
+    for tc, simt in FLASH_TC_TWIN.items():
+        n_tc = by_kernel[tc]["count"]
+        n_simt = sum(r[1] for r in kernels if KERNEL_SYMBOLS[simt] in r[0])
+        if n_tc != calls or n_simt:
+            fail("T3", f"the bf16 step ran {n_tc} tensor-core and {n_simt} "
+                       f"SIMT {simt} launches, expected {calls} and 0")
     step_rec = {"wall_ms": wall, "step_ms": step_ms,
                 "tokens_per_s": LONG_BATCH * LONG_LEN / step_ms * 1e3,
                 "device_busy_ms": busy, "profiled_wall_ms": prof_ms,
@@ -1628,7 +1720,7 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         "plain_ms": numbers["flash_fwd_tc"]["plain_ms"],
         "library_ms": numbers["flash_fwd_tc"]["library_ms"],
         "bound_ms": bnd[0], "bound_by": bnd[1]}
-    for key, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+    for key, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv_tc", "dkv")):
         bnd = bound_ms(*attention_bwd_bound(q, k, m, causal, which),
                        torch.bfloat16)
         # the plain version computes dq, dk and dv in one pass; no library
@@ -1636,11 +1728,21 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         numbers[key].update(plain_ms=plain_bwd, library_ms=None,
                             library_pair_ms=lib_bwd, bound_ms=bnd[0],
                             bound_by=bnd[1])
+    # the SIMT dK/dV on the same inputs, the route this shape took before
+    # the tensor-core kernel (CUDA events: ~20 ms calls, no launch cost)
+    dkv = numbers["flash_bwd_dkv_tc"]
+    dkv["simt_ms"] = time_ms(lambda: A.flash_bwd_dkv_launch(
+        "simt", *bwd_args), [()], 2)
+    dkv_simt = {key: dkv[key] for key in ("plain_ms", "library_ms",
+                                          "library_pair_ms", "bound_ms",
+                                          "bound_by")}
+    dkv_simt["ms"] = dkv["simt_ms"]
     del q, k, v, do, ql, kl, vl, lib_o
     torch.cuda.empty_cache()
-    log(f"[T3] flash_fwd (SIMT) at the path's shape, same inputs: "
-        f"{simt['ms']:.3f} ms (CUDA events) against the tensor-core "
-        f"kernel's {numbers['flash_fwd_tc']['ms']:.3f} ms (device)")
+    for name, rec in (("flash_fwd", simt), ("flash_bwd_dkv", dkv_simt)):
+        log(f"[T3] {name} (SIMT) at the path's shape, same inputs: "
+            f"{rec['ms']:.3f} ms (CUDA events) against the tensor-core "
+            f"kernel's {numbers[name + '_tc']['ms']:.3f} ms (device)")
 
     # the fused update on the transformer_long parameters, float32
     tree = {key: p.detach().clone() for key, p in param_tree(model32).items()}
@@ -1677,6 +1779,7 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
             f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the kernel's time")
     numbers["flash_fwd"] = simt
+    numbers["flash_bwd_dkv"] = dkv_simt
     return step_rec, numbers
 
 
@@ -3008,8 +3111,12 @@ LN_FLOPS_PER_ELEMENT = 8          # the kernel's float32 operations
 
 B1_BATCH, B_LEN, B_STEPS, B_TIMED = 8, 128, 3, 10
 B_KEYS = ("flash_fwd", "flash_fwd_tc", "flash_fwd_simt", "flash_bwd_dq",
-          "flash_bwd_dkv", "layer_norm", "fused_update")
+          "flash_bwd_dkv", "flash_bwd_dkv_tc", "flash_bwd_dkv_simt",
+          "layer_norm", "fused_update")
 B_SYMBOLS = dict(KERNEL_SYMBOLS, layer_norm="layer_norm_kernel")
+# the flash kernels of B2's bf16 use_pallas step: 12 launches each, the
+# forward and dK/dV on the tensor cores (their SIMT twins none)
+B2_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv_tc")
 
 
 def ln_inputs(n, d, dtype, affine, dev, seed, sets=1):
@@ -3190,13 +3297,13 @@ def zero_b_counts():
 
 
 def b_expect(use_pallas, dtype):
-    """Launches of one BERT step: 12 flash forward (on the tensor cores in
-    bf16, on the SIMT kernel in float32), dQ and dK/dV with
-    ``use_pallas``; no row-norm launch (the LayerNorms see [B, T, H]) and
-    no fused update (the step is unfused); none without."""
+    """Launches of one BERT step: 12 flash forward and 12 dK/dV (each on
+    the tensor cores in bf16, on its SIMT kernel in float32) and 12 dQ
+    with ``use_pallas``; no row-norm launch (the LayerNorms see [B, T, H])
+    and no fused update (the step is unfused); none without."""
     per = 12 if use_pallas else 0
     return {**fwd_counts(per, dtype), "flash_bwd_dq": per,
-            "flash_bwd_dkv": per, "layer_norm": 0, "fused_update": 0}
+            **dkv_counts(per, dtype), "layer_norm": 0, "fused_update": 0}
 
 
 def bert_batch(batch, vocab, dev, seed):
@@ -3428,9 +3535,9 @@ def phase_bert_bench(dev, seed):
         del grads
         busy, kernels, prof_ms = profiled(
             step, f"the BERT step ({label})",
-            expect={B_SYMBOLS[k]: 12 for k in ("flash_fwd_tc", "flash_bwd_dq",
-                                               "flash_bwd_dkv")} if up
-            else None)
+            expect=dict({B_SYMBOLS[k]: 12 for k in B2_KERNELS},
+                        **{B_SYMBOLS[k]: 0 for k in FLASH_TC_TWIN.values()})
+            if up else None)
         if busy <= 0:
             fail("B2", f"the profiled {label} step recorded no device time")
         rec.update(device_busy_ms=busy, profiled_wall_ms=prof_ms,
@@ -3439,10 +3546,10 @@ def phase_bert_bench(dev, seed):
                                 for n, c, t in kernels[:15]])
         if up:
             rec["kernels_in_step"] = {}
-            for key in ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv"):
+            for key in B2_KERNELS + tuple(FLASH_TC_TWIN.values()):
                 rows = [r for r in kernels if B_SYMBOLS[key] in r[0]]
                 n = sum(r[1] for r in rows)
-                if n != 12:
+                if n != (12 if key in B2_KERNELS else 0):
                     fail("B2", f"the profiled step shows {n} {key}")
                 rec["kernels_in_step"][key] = {
                     "count": n, "device_ms": sum(r[2] for r in rows)}
@@ -3528,17 +3635,19 @@ def main(argv=None):
     report["train_numbers"] = train_numbers
     report["seconds"] = time.perf_counter() - t_start
 
-    # the forward kernels by route: the serving path's, the training
-    # path's (float32 on the SIMT kernel, bf16 on the tensor cores) and the
-    # BERT bench step's
+    # the forward and dK/dV kernels by route: the serving path's (the
+    # forward), the training path's (float32 on the SIMT kernels, bf16 on
+    # the tensor cores) and the BERT bench step's; each SIMT row counts its
+    # route's launches, not the kernel's total
     launches = dict(report["train"]["launches"])
-    launches["flash_fwd"] = launches.pop("flash_fwd_simt") + \
-        serving_launches["simt"]
-    launches["flash_fwd_tc"] += serving_launches["tc"]
     bert_launches = dict(report["bert_bench"]["use_pallas"]["launches"])
-    bert_launches["flash_fwd"] = bert_launches.pop("flash_fwd_simt")
+    for simt in FLASH_TC_TWIN.values():
+        launches[simt] = launches.pop(f"{simt}_simt")
+        bert_launches[simt] = bert_launches.pop(f"{simt}_simt")
+    launches["flash_fwd"] += serving_launches["simt"]
+    launches["flash_fwd_tc"] += serving_launches["tc"]
     for key in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq",
-                "flash_bwd_dkv"):
+                "flash_bwd_dkv", "flash_bwd_dkv_tc"):
         launches[key] += bert_launches[key]
     launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
@@ -3602,6 +3711,12 @@ def main(argv=None):
             rec["shapes"] = [{k: r.get(k) for k in shape_keys}
                              for r in report["numbers"]
                              if r["route"] == route] + [train]
+        elif name in ("flash_bwd_dkv", "flash_bwd_dkv_tc"):
+            rec.update(train_numbers[name])
+            counter = name if name.endswith("_tc") else name + "_simt"
+            rec["launches_by_path"] = {
+                "training": report["train"]["launches"][counter],
+                "bert": bert_launches[name]}
         elif name in RESNET_KERNELS:
             rec.update({k: report["resnet_numbers"][name][k] for k in keys})
             if name in by_path:

@@ -1,9 +1,11 @@
 // Tensor-core pieces of the conv kernels' implicit GEMM, for Hopper
 // (sm_90a): the 128-byte-swizzled tile layout that wgmma's shared-memory
-// descriptors read, the descriptors, the bf16 wgmma wrappers with both
-// operands in shared memory, and a cp.async ring of stages. conv_kxk_dw_tc.cu
-// and conv_kxk_fwd_tc.cu build on it; the SIMT core (igemm.cuh) stays
-// beside it for float32.
+// descriptors read, the descriptors, the bf16 wgmma wrappers (both operands
+// in shared memory, or A from registers, with the conversion of float32
+// accumulators into A fragments), a cp.async ring of stages, and the
+// base-2 exponent an attention kernel's softmax takes.
+// conv_kxk_dw_tc.cu, conv_kxk_fwd_tc.cu and flash_bwd_dkv_tc.cu build on
+// it; the SIMT core (igemm.cuh) stays beside it for float32.
 //
 // The layout: a tile is a set of 64-column blocks, each [rows][64 bf16],
 // one 128-byte row per row; the 16-byte chunk c of row r sits at
@@ -42,6 +44,14 @@ __device__ __forceinline__ uint32_t swizzled(int r, int c) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared; with src_bytes 0 the destination is zeroed.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -231,6 +241,103 @@ __device__ __forceinline__ void wgmma_nt(float (&d)[32], uint64_t da,
 __device__ __forceinline__ void wgmma_nt(float (&d)[64], uint64_t da,
                                         uint64_t db, int scale_d) {
   wgmma_nt_n128(d, da, db, scale_d);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both operands K-major in shared
+// memory (no transpose bit); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_nn_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers, four bf16x2 in
+// the m64 accumulator layout (row w*16 + lane/4 (+8), columns 2*(lane%4)
+// (+8)), B MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rt_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Keeps A-fragment registers, which a running wgmma reads, from being
+// rewritten or reused before the wait that retires it.
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(f[kk][x])::"memory");
+}
+
+// x in bf16, as wgmma_rt_n64's A fragments: k16 step kk takes
+// x[8kk .. 8kk+7] (the m64n64 accumulator layout is the A-fragment layout).
+__device__ __forceinline__ void to_fragments(uint32_t (&f)[4][4],
+                                             const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h2 =
+          __floats2bfloat162_rn(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+      f[kk][i] = *reinterpret_cast<const uint32_t*>(&h2);
+    }
+  }
+}
+
+// x as two sets of A fragments, hi = bf16(x) and lo = bf16(x - hi): a
+// product of hi and one of lo, summed in float32, carries ~16 bits of x
+// where hi alone carries 8.
+__device__ __forceinline__ void to_fragments_split(uint32_t (&hi)[4][4],
+                                                   uint32_t (&lo)[4][4],
+                                                   const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * kk + 2 * i], b = x[8 * kk + 2 * i + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+      const float2 back = __bfloat1622float2(h2);
+      const __nv_bfloat162 l2 = __floats2bfloat162_rn(a - back.x, b - back.y);
+      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[kk][i] = *reinterpret_cast<const uint32_t*>(&l2);
+    }
+  }
+}
+
+// 2^x, one MUFU instruction (relative error ~2^-22).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // A ring of STAGES equal stages of STAGE_BYTES each in dynamic shared

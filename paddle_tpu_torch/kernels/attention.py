@@ -19,9 +19,15 @@ When autograd records (an input requires grad) the call goes through the
 dispatcher op ``paddle_tpu_torch::flash_attn``, the counterpart of
 ``flash_attention_trainable``: its forward saves (q, k, v, kv_mask, o, lse)
 and its backward computes ``dvec = sum_d(do * o)`` in float32 and launches
-the two kernels of ``csrc/flash_bwd.cu`` (dQ, then dK/dV; they replace
-``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``). Being an op, it is
-what a selective-checkpoint policy names to keep (o, lse) under remat.
+dQ, then dK/dV (they replace ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``). dQ is ``csrc/flash_bwd.cu``'s SIMT kernel.
+dK/dV is one of two kernels, chosen by the pure rule ``dkv_route``:
+``csrc/flash_bwd_dkv_tc.cu`` (wgmma) for bf16 with D a multiple of 16 in
+16..64 and 16-byte aligned operands, ``csrc/flash_bwd.cu``'s SIMT kernel
+for the rest (float32, other head dims); as in the forward, a failed
+build or launch raises and neither gives way to the other. Being an op,
+it is what a selective-checkpoint policy names to keep (o, lse) under
+remat.
 
 ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are
 the plain versions: the same functions in PyTorch, with the JAX kernels'
@@ -286,34 +292,87 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, kv_mask=None):
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale, kv_mask=None):
-    """Launch ``flash_bwd_dkv`` of ``csrc/flash_bwd.cu``: (dK, dV), with
-    the inputs of ``flash_bwd_dq_cuda``."""
+def _dkv_tc_lib():
+    from paddle_tpu_torch.core import native_build
+    lib = native_build.load("flash_bwd_dkv_tc")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_bwd_dkv_tc.argtypes = [p] * 9 + [i] * 5 + [
+            ctypes.c_float, i, p]
+        lib.flash_bwd_dkv_tc.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def dkv_route(dtype, d, aligned):
+    """The dK/dV kernel a CUDA call takes, by a fixed rule: ``"tc"``
+    (``csrc/flash_bwd_dkv_tc.cu``, wgmma) for bfloat16 with D a multiple
+    of 16 in 16..64 and q, k, v and do at 16-byte aligned bases
+    (``aligned``; dk and dv, which the wrapper allocates, always are);
+    ``"simt"`` (``csrc/flash_bwd.cu``) for everything else: float32, whose
+    1e-4 gates no tensor-core input type meets; D from 80 to 128, whose
+    dK and dV accumulators do not fit the tensor-core kernel's registers;
+    other head dims."""
+    if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 64 and aligned:
+        return "tc"
+    return "simt"
+
+
+def flash_bwd_dkv_launch(route, q, k, v, do, lse, dvec, causal, scale,
+                         kv_mask=None):
+    """Launch the dK/dV kernel of ``route`` (``"tc"`` or ``"simt"``) on the
+    inputs ``flash_bwd_dkv_cuda`` takes; count nothing. Returns (dk, dv).
+    Raises on what the kernel does not take and on a launch error (each C
+    entry refuses what it cannot compute)."""
     b, h, tq, d = q.shape
     mask_ptr = _bwd_operands(q, k, v, do, lse, dvec, kv_mask)
-    lib = _bwd_lib()
+    if route == "tc" and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_bwd_dkv_tc takes bfloat16, not {q.dtype}")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), mask_ptr, dk.data_ptr(),
+            dv.data_ptr(), b * h, h, tq, k.shape[2], d, float(scale),
+            int(causal))
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                do.data_ptr(), lse.data_ptr(),
-                                dvec.data_ptr(), mask_ptr, dk.data_ptr(),
-                                dv.data_ptr(), b * h, h, tq, k.shape[2], d,
-                                float(scale), int(causal),
-                                _DTYPE_CODES[q.dtype], _stream(q))
+        if route == "tc":
+            err = _dkv_tc_lib().flash_bwd_dkv_tc(*args, _stream(q))
+        elif route == "simt":
+            err = _bwd_lib().flash_bwd_dkv(*args, _DTYPE_CODES[q.dtype],
+                                           _stream(q))
+        else:
+            raise ValueError(f"no dK/dV route {route!r}")
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError_t {err}")
+        name = "flash_bwd_dkv_tc" if route == "tc" else "flash_bwd_dkv"
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    return dk, dv
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale, kv_mask=None):
+    """(dK, dV) from the dK/dV kernel that ``dkv_route`` picks, with the
+    inputs of ``flash_bwd_dq_cuda``. Counts the launch in ``.launches``
+    and in ``.tc_launches`` or ``.simt_launches``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))
+    route = dkv_route(q.dtype, q.shape[3], aligned)
+    dk, dv = flash_bwd_dkv_launch(route, q, k, v, do, lse, dvec, causal,
+                                  scale, kv_mask)
     flash_bwd_dkv_cuda.launches += 1
+    if route == "tc":
+        flash_bwd_dkv_cuda.tc_launches += 1
+    else:
+        flash_bwd_dkv_cuda.simt_launches += 1
     return dk, dv
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.tc_launches = 0
+flash_bwd_dkv_cuda.simt_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal, scale, kv_mask=None):
     """(dq, dk, dv) of the attention that gave (o, lse): dvec in float32,
-    then the two kernels on CUDA tensors or their plain version on CPU
-    tensors."""
+    then the dQ kernel and the dK/dV kernel of its route on CUDA tensors,
+    or their plain version on CPU tensors."""
     do = do.to(q.dtype).contiguous()
     dvec = torch.sum(do.float() * o.float(), dim=-1)
     if q.device.type == "cuda":

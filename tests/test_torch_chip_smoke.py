@@ -103,7 +103,8 @@ def test_training_phase_shapes_are_transformer_long():
         chip_smoke.LONG_BATCH, cfg["n_head"], chip_smoke.LONG_LEN,
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
     assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "conv_kxk_dw_tc",
-                                  "conv_kxk_fwd_tc", "flash_bwd", "flash_fwd",
+                                  "conv_kxk_fwd_tc", "flash_bwd",
+                                  "flash_bwd_dkv_tc", "flash_fwd",
                                   "flash_fwd_tc", "fused_update", "layer_norm",
                                   "pool_fused", "seqpool"]
 
@@ -164,7 +165,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 15
+    assert len(chip_smoke.KERNELS) == 16
 
 
 def test_kernels_line_has_the_tensor_core_weight_gradient_row():
@@ -393,13 +394,15 @@ def test_layer_norm_gate_allows_one_ulp_and_no_more(dtype, mant):
 
 
 def test_bert_launches_a_step():
+    """B1's float32 steps and B2's bf16 ones: the forward and dK/dV split
+    by dtype, the tensor cores in bf16 and the SIMT kernels in float32."""
     assert chip_smoke.b_expect(True, torch.bfloat16) == {
         "flash_fwd": 12, "flash_fwd_tc": 12, "flash_fwd_simt": 0,
-        "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "layer_norm": 0,
-        "fused_update": 0}
+        "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "flash_bwd_dkv_tc": 12,
+        "flash_bwd_dkv_simt": 0, "layer_norm": 0, "fused_update": 0}
     assert chip_smoke.b_expect(True, torch.float32) == dict(
         chip_smoke.b_expect(True, torch.bfloat16), flash_fwd_tc=0,
-        flash_fwd_simt=12)
+        flash_fwd_simt=12, flash_bwd_dkv_tc=0, flash_bwd_dkv_simt=12)
     for dtype in (torch.float32, torch.bfloat16):
         assert set(chip_smoke.b_expect(False, dtype).values()) == {0}
         assert set(chip_smoke.b_expect(False, dtype)) == set(
@@ -493,6 +496,102 @@ def test_fwd_counts_split_the_forward_by_route():
         "flash_fwd": 24, "flash_fwd_tc": 0, "flash_fwd_simt": 24}
 
 
+@pytest.mark.parametrize("dtype,tc,simt", [(torch.bfloat16, 12, 0),
+                                           (torch.float32, 0, 12)],
+                         ids=["bf16", "f32"])
+def test_dkv_counts_split_the_dkv_by_dtype(dtype, tc, simt):
+    """T2's steps and B1/B2's: every dK/dV of a training path (D = 64) on
+    the tensor cores in bf16 and on the SIMT kernel in float32, and the
+    counters ``counted_wrappers`` reads hold both routes."""
+    assert chip_smoke.dkv_counts(12, dtype) == {
+        "flash_bwd_dkv": 12, "flash_bwd_dkv_tc": tc,
+        "flash_bwd_dkv_simt": simt}
+    keys = set(chip_smoke.counted_wrappers())
+    assert {"flash_bwd_dkv", "flash_bwd_dkv_tc",
+            "flash_bwd_dkv_simt"} <= keys
+    assert set(chip_smoke.B_KEYS) == keys | {"layer_norm"}
+
+
+def test_kernels_line_has_the_tensor_core_dkv_row():
+    """The 16th row: the second implementation of the TPU kernel that the
+    SIMT dK/dV replaces, built from its own source and checked for HGMMA."""
+    row, simt = (chip_smoke.KERNELS["flash_bwd_dkv_tc"],
+                 chip_smoke.KERNELS["flash_bwd_dkv"])
+    assert row == {"route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/flash_bwd_dkv_tc.cu",
+                   "replaces": "paddle_tpu/kernels/attention.py:367"}
+    assert simt["replaces"] == row["replaces"]
+    assert "flash_bwd_dkv_tc" in chip_smoke.SOURCES
+    assert chip_smoke.FLASH_TC_TWIN == {"flash_fwd_tc": "flash_fwd",
+                                        "flash_bwd_dkv_tc": "flash_bwd_dkv"}
+
+
+def test_profile_symbols_tell_the_dkv_routes_apart():
+    """Neither dK/dV route's symbol is in the other's kernel name, nor in
+    the dQ kernel's, as the forward's two symbols are kept apart."""
+    syms = chip_smoke.KERNEL_SYMBOLS
+    tc_name = ("void (anonymous namespace)::flash_bwd_dkv_tc_kernel("
+               "__nv_bfloat16 const*, __nv_bfloat16 const*)")
+    simt_name = ("void (anonymous namespace)::flash_bwd_dkv_kernel<"
+                 "__nv_bfloat16, 2>(__nv_bfloat16 const*)")
+    dq_name = ("void (anonymous namespace)::flash_bwd_dq_kernel<"
+               "__nv_bfloat16, 2>(__nv_bfloat16 const*)")
+    assert syms["flash_bwd_dkv_tc"] in tc_name
+    assert syms["flash_bwd_dkv_tc"] not in simt_name + dq_name
+    assert syms["flash_bwd_dkv"] in simt_name
+    assert syms["flash_bwd_dkv"] not in tc_name + dq_name
+    for other in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq"):
+        assert syms[other] not in tc_name + simt_name
+
+
+def test_t3_and_b2_expect_the_dkv_on_the_tensor_cores():
+    """The profiled bf16 training step and B2's use_pallas step count the
+    tensor-core dK/dV, 12 a step, and gate its SIMT twin at 0."""
+    assert "flash_bwd_dkv_tc" in chip_smoke.T3_KERNELS
+    assert "flash_bwd_dkv" not in chip_smoke.T3_KERNELS
+    assert chip_smoke.B2_KERNELS == ("flash_fwd_tc", "flash_bwd_dq",
+                                     "flash_bwd_dkv_tc")
+    assert set(chip_smoke.FLASH_TC_TWIN.values()).isdisjoint(
+        chip_smoke.B2_KERNELS + chip_smoke.T3_KERNELS)
+
+
+def test_bwd_check_shapes_cover_both_dkv_routes_and_the_new_cases():
+    """T1's backward shapes: D = 16 and 32, causal with and without a kv
+    mask, ragged Tq and Tk, D = 128 (bf16 on SIMT), and a batch entry
+    whose keys are all masked."""
+    names = {s[0]: s for s in chip_smoke.BWD_CHECK_SHAPES}
+    assert names["d16"][5] == 16 and names["d32_causal"][5] == 32
+    _, _, _, tq, tk, _, causal, mask = names["causal_masked"]
+    assert causal and mask == "ragged" and tq % 64 and tk % 64
+    assert names["causal"][6] and names["causal"][7] is None
+    assert names["masked_ragged"][3] % 64 and names["masked_ragged"][4] % 64
+    assert names["d128"][5] == 128
+    _, b, _, _, tk, _, causal, mask = names["all_pad_causal"]
+    m = chip_smoke.make_mask(mask, b, tk, torch.Generator().manual_seed(0),
+                             "cpu")
+    assert causal and not m[0].any() and m[1:, 0].all()
+    assert chip_smoke.expect_dkv_route(torch.bfloat16, 128) == "simt"
+    routes = {chip_smoke.expect_dkv_route(dt, s[5])
+              for s in chip_smoke.BWD_CHECK_SHAPES
+              for dt in (torch.float32, torch.bfloat16)}
+    assert routes == {"tc", "simt"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", chip_smoke.BWD_CHECK_SHAPES,
+                         ids=[s[0] for s in chip_smoke.BWD_CHECK_SHAPES])
+def test_expected_dkv_route_is_the_ports_rule(shape, dtype):
+    """The dK/dV route T1 asserts, written out, is the one the port's
+    ``dkv_route`` picks for contiguous, aligned inputs: the tensor cores
+    for bf16 at D <= 64, the SIMT kernel for float32 and D = 128."""
+    from paddle_tpu_torch.kernels.attention import dkv_route
+    d = shape[5]
+    want = chip_smoke.expect_dkv_route(dtype, d)
+    assert dkv_route(dtype, d, True) == want
+    assert want == ("tc" if dtype == torch.bfloat16 and d <= 64 else "simt")
+
+
 class _FakeEvent:
     def __init__(self, key, count, device_us):
         from torch.autograd import DeviceType
@@ -558,3 +657,23 @@ def test_profiled_without_expect_runs_one_session(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     busy, rows, _ = chip_smoke.profiled(lambda: None, "test")
     assert sessions == [1] and busy == 0 and rows == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bwd_scaled_gate_fails_a_dropped_query_tile(dtype):
+    """At the training shape dK's and dV's elements are far below 1, where
+    T1's bf16 gate relative to (1 + |plain|) is near an absolute one: a
+    gradient that lost one of its 64 query tiles passes it. The gate
+    relative to max|plain| fails it in either dtype, and passes the sums
+    rounded once to the dtype."""
+    g = torch.Generator().manual_seed(0)
+    terms = torch.randn(64, 256, 64, generator=g, dtype=torch.float64) * 1e-3
+    ref = terms.sum(0).float()
+    lost = chip_smoke.bwd_errors(terms[1:].sum(0).to(dtype), ref)
+    if dtype == torch.bfloat16:
+        assert lost["rel_err"] <= chip_smoke.BWD_TOLERANCE[dtype]
+    assert lost["scaled_err"] > chip_smoke.BWD_SCALED_TOLERANCE[dtype]
+    assert not chip_smoke.bwd_within(lost, dtype)
+    sound = chip_smoke.bwd_errors(terms.sum(0).to(dtype), ref)
+    assert chip_smoke.bwd_within(sound, dtype)

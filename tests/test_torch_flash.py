@@ -5,7 +5,9 @@ the JAX Pallas forward kernel run in interpret mode
 (``_flash_call_fwd(..., interpret=True)``: o and lse) and against the scan
 path of the JAX ``flash_attention`` (o). The kernel itself runs only on the
 card (``tests/test_torch_gpu.py``); here the wrapper must take the plain
-version because the tensors lie on the CPU, and count no launch.
+version because the tensors lie on the CPU, and count no launch. The
+rules that pick a kernel on the card (``fwd_route``, ``dkv_route``) are
+pinned by tables.
 
 Tolerance: float32, atol = rtol = 1e-5. Both sides compute the same
 float32 function; only the summation order of the two products and the
@@ -166,3 +168,47 @@ def test_cpu_wrapper_counts_no_route_launch():
                          _t(v).bfloat16(), kv_mask=_t(m), device="cpu")
     assert (port.flash_fwd_cuda.tc_launches,
             port.flash_fwd_cuda.simt_launches) == (tc, simt)
+
+
+# (dtype, d, aligned, route): the dK/dV kernel a CUDA call takes
+DKV_ROUTES = [
+    (torch.bfloat16, 64, True, "tc"),       # transformer_long, BERT
+    (torch.bfloat16, 16, True, "tc"),       # smallest tc width
+    (torch.bfloat16, 32, True, "tc"),       # D padded to 64
+    (torch.bfloat16, 48, True, "tc"),
+    (torch.bfloat16, 8, True, "simt"),      # D under 16
+    (torch.bfloat16, 80, True, "simt"),     # D past 64: four accumulators
+    (torch.bfloat16, 128, True, "simt"),    # of 128 columns do not fit
+    (torch.bfloat16, 100, True, "simt"),    # D not a multiple of 16
+    (torch.bfloat16, 40, True, "simt"),
+    (torch.bfloat16, 64, False, "simt"),    # a base off 16 bytes
+    (torch.float32, 64, True, "simt"),      # float32: 1e-4 gates
+    (torch.float32, 16, True, "simt"),
+    (torch.float16, 64, True, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,aligned,route", DKV_ROUTES,
+                         ids=[f"{str(r[0])[6:]}_d{r[1]}_"
+                              f"{'al' if r[2] else 'unal'}"
+                              for r in DKV_ROUTES])
+def test_dkv_route_is_a_fixed_rule(dtype, d, aligned, route):
+    assert port.dkv_route(dtype, d, aligned) == route
+
+
+def test_cpu_backward_counts_no_dkv_route_launch():
+    """The autograd route on CPU tensors takes the plain backward: no dK/dV
+    launch on either route, no dQ launch."""
+    before = (port.flash_bwd_dkv_cuda.launches,
+              port.flash_bwd_dkv_cuda.tc_launches,
+              port.flash_bwd_dkv_cuda.simt_launches,
+              port.flash_bwd_dq_cuda.launches)
+    q, k, v, m = _inputs(2, 2, 16, 16, 16, masked=False)
+    leaves = [_t(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    o = port.flash_attention(*leaves, device="cpu")
+    grads = torch.autograd.grad(o.float().sum(), leaves)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert (port.flash_bwd_dkv_cuda.launches,
+            port.flash_bwd_dkv_cuda.tc_launches,
+            port.flash_bwd_dkv_cuda.simt_launches,
+            port.flash_bwd_dq_cuda.launches) == before

@@ -30,12 +30,19 @@ from paddle_tpu_torch.ops.loss import token_softmax_cross_entropy
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
-# (name, b, h, tq, tk, d, causal, masked, block): B=2, H=2, T=16..64
+# (name, b, h, tq, tk, d, causal, masked, block): B=2, H=2, T=16..100.
+# The last three are the tensor-core dK/dV kernel's edge cases, held to
+# the same JAX kernels: Tq and Tk that are no multiple of its 64-row
+# tiles, and causal with a kv mask (no query tile skipped) at D = 32 and
+# 64 with Tq off the tiles; every row keeps key 0 (``_inputs``)
 CASES = [
     ("unmasked", 2, 2, 32, 32, 16, False, False, 16),
     ("masked", 2, 2, 16, 48, 8, False, True, 16),
     ("causal", 2, 2, 64, 64, 32, True, False, 32),
     ("causal_masked", 2, 2, 32, 32, 8, True, True, 16),
+    ("ragged_tiles", 2, 2, 80, 100, 16, False, True, 20),
+    ("causal_masked_d32", 2, 2, 96, 96, 32, True, True, 32),
+    ("causal_masked_d64", 1, 2, 72, 72, 64, True, True, 24),
 ]
 
 

@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
-forward (both routes, the SIMT kernel and the tensor-core kernel, and the
-rule that picks one) and backward, the fused optimizer update, the conv
+forward and dK/dV backward (both routes of each, the SIMT kernel and the
+tensor-core kernel, and the rules that pick one) and the dQ backward, the
+fused optimizer update, the conv
 kernels (the 3x3 forward's and weight gradient's two routes each and the
 rules that pick one among them), the fused max pool, the embedding
 seqpool and the row
@@ -286,6 +287,141 @@ def test_autograd_route_launches_both_bwd_kernels(cuda):
     want = torch.autograd.grad(ro, plain, do)
     for got, ref in zip(grads, want):
         assert (got - ref).abs().max().item() < 1e-4
+
+
+# -- the tensor-core dK/dV (csrc/flash_bwd_dkv_tc.cu) --------------------------
+#
+# Tolerance: within 2e-2 of the plain version relative to (1 + |plain|), as
+# the SIMT kernel in bf16: P is rounded to bf16 before its product (one
+# rounding, 2^-9 relative, of terms summed in float32), dS is split into
+# two bf16 terms, and dk and dv are rounded to bf16 once.
+
+# (name, b, h, tq, tk, d, causal, masked): Tq and Tk off the 64-row tiles,
+# causal without a mask (query tiles skipped) and with one (none skipped),
+# D = 16, 32 and 64, one query row; every row keeps a key (``_bwd_inputs``)
+DKV_TC_SHAPES = [
+    ("ragged", 3, 2, 100, 150, 64, False, True),
+    ("causal", 2, 3, 200, 200, 64, True, False),
+    ("causal_masked", 2, 3, 130, 130, 32, True, True),
+    ("d16", 2, 2, 70, 90, 16, False, False),
+    ("square", 2, 4, 256, 256, 64, False, False),
+    ("one_query", 2, 2, 1, 70, 32, False, True),
+]
+
+
+def _dkv_routes():
+    return (port.flash_bwd_dkv_cuda.tc_launches,
+            port.flash_bwd_dkv_cuda.simt_launches)
+
+
+def _dkv_err(got, ref):
+    return ((got.float() - ref.float()).abs()
+            / (1 + ref.float().abs())).max().item()
+
+
+@pytest.mark.parametrize("shape", DKV_TC_SHAPES,
+                         ids=[s[0] for s in DKV_TC_SHAPES])
+def test_dkv_tc_route_matches_plain_version(cuda, shape):
+    _, b, h, tq, tk, d, causal, masked = shape
+    q, k, v, m, do, lse, dvec = _bwd_inputs(cuda, torch.bfloat16, b, h, tq,
+                                            tk, d, causal, masked)
+    tc, simt = _dkv_routes()
+    dk, dv = port.flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal,
+                                     d ** -0.5, m)
+    torch.cuda.synchronize()
+    assert _dkv_routes() == (tc + 1, simt)
+    _, rdk, rdv = port.flash_attention_bwd_reference(q, k, v, do, lse, dvec,
+                                                     causal, d ** -0.5, m)
+    for name, got, ref in (("dk", dk, rdk), ("dv", dv, rdv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        assert _dkv_err(got, ref) < 2e-2, (name, _dkv_err(got, ref))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dkv_tc_fully_masked_rows_match_plain_version(cuda, causal):
+    """Batch entry 0's kv mask keeps no key: each of its rows scores -1e30
+    on every key and has lse ~= -1e30, so p = 1 on every key there, in the
+    kernel as in the plain version, and dS = dP - dvec is not damped by a
+    small p. Held to the gate of the other shapes."""
+    b, h, tq, tk, d = 2, 2, 130, 150, 64
+    q, k, v, m = _inputs(cuda, torch.bfloat16, b, h, tq, tk, d, True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(b, h, tq, d, device=cuda, generator=g).to(q.dtype)
+    o, lse = port.flash_fwd_cuda(q, k, v, causal, d ** -0.5, m)
+    dvec = (do.float() * o.float()).sum(-1)
+    assert not m[0].any() and (lse[0] < -1e29).all()
+    tc, simt = _dkv_routes()
+    dk, dv = port.flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal,
+                                     d ** -0.5, m)
+    torch.cuda.synchronize()
+    assert _dkv_routes() == (tc + 1, simt)
+    _, rdk, rdv = port.flash_attention_bwd_reference(q, k, v, do, lse, dvec,
+                                                     causal, d ** -0.5, m)
+    for name, got, ref in (("dk", dk, rdk), ("dv", dv, rdv)):
+        assert torch.isfinite(got).all(), name
+        assert _dkv_err(got, ref) < 2e-2, (name, _dkv_err(got, ref))
+
+
+def test_dkv_route_counters_follow_the_rule(cuda):
+    """bf16 at D a multiple of 16 in 16..64 on aligned inputs takes the
+    tensor cores; float32, D = 128, D = 100 and a base off 16 bytes the
+    SIMT kernel. Every launch also counts in ``.launches``."""
+    bf = torch.bfloat16
+    cases = [((bf, 64), "tc"), ((bf, 16), "tc"),
+             ((torch.float32, 64), "simt"), ((bf, 128), "simt"),
+             ((bf, 100), "simt")]
+    for (dtype, d), route in cases:
+        q, k, v, m, do, lse, dvec = _bwd_inputs(cuda, dtype, 2, 2, 40, 70, d,
+                                                False, True)
+        before, n = _dkv_routes(), port.flash_bwd_dkv_cuda.launches
+        dk, dv = port.flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, False, 0.125,
+                                         m)
+        torch.cuda.synchronize()
+        assert _dkv_routes() == ((before[0] + 1, before[1]) if route == "tc"
+                                 else (before[0], before[1] + 1)), (dtype, d)
+        assert port.flash_bwd_dkv_cuda.launches == n + 1
+        _, rdk, rdv = port.flash_attention_bwd_reference(
+            q, k, v, do, lse, dvec, False, 0.125, m)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert max(_dkv_err(dk, rdk), _dkv_err(dv, rdv)) < tol
+    # do 2 bytes past an aligned base: the SIMT kernel
+    q, k, v, m, do, lse, dvec = _bwd_inputs(cuda, bf, 1, 1, 32, 32, 64, False,
+                                            False)
+    buf = torch.empty(1 + do.numel(), device=cuda, dtype=bf)
+    off = buf[1:].view(do.shape)
+    off.copy_(do)
+    before = _dkv_routes()
+    port.flash_bwd_dkv_cuda(q, k, v, off, lse, dvec, False, 0.125)
+    torch.cuda.synchronize()
+    assert _dkv_routes() == (before[0], before[1] + 1)
+
+
+def test_dkv_tc_launch_raises_and_never_falls_back(cuda):
+    """The tensor-core dK/dV's C entry refuses what it cannot compute (D =
+    128, a base off 16 bytes) and its wrapper what is not bf16: the launch
+    raises, and no other kernel or plain version runs in its place."""
+    bf = torch.bfloat16
+    before = _dkv_routes(), port.flash_bwd_dkv_cuda.launches
+    q, k, v, _, do, lse, dvec = _bwd_inputs(cuda, bf, 1, 2, 32, 32, 128,
+                                            False, False)
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_tc launch failed"):
+        port.flash_bwd_dkv_launch("tc", q, k, v, do, lse, dvec, False, 0.125)
+    q, k, v, _, do, lse, dvec = _bwd_inputs(cuda, bf, 1, 1, 32, 32, 64,
+                                            False, False)
+    buf = torch.empty(1 + q.numel(), device=cuda, dtype=bf)
+    off = buf[1:].view(q.shape)
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_tc launch failed"):
+        port.flash_bwd_dkv_launch("tc", off, k, v, do, lse, dvec, False,
+                                  0.125)
+    with pytest.raises(ValueError):
+        port.flash_bwd_dkv_launch("wgmma", q, k, v, do, lse, dvec, False,
+                                  0.125)
+    f = [t.float() for t in (q, k, v, do)]
+    with pytest.raises(TypeError):
+        port.flash_bwd_dkv_launch("tc", *f, lse, dvec, False, 0.125)
+    torch.cuda.synchronize()
+    assert (_dkv_routes(), port.flash_bwd_dkv_cuda.launches) == before
 
 
 def test_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
