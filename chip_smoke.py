@@ -8,9 +8,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. build    every kernel of the paths from ``paddle_tpu_torch/csrc`` (one
             ``nvcc`` per source, all started together); ``cuobjdump -sass``
             must find wgmma (``HGMMA``) in every function of the
-            tensor-core flash forward, of the tensor-core dK/dV backward,
-            of the tensor-core 3x3 forward and of the tensor-core weight
-            gradient;
+            tensor-core flash forward, of the tensor-core dQ and dK/dV
+            backward, of the tensor-core 3x3 forward and of the
+            tensor-core weight gradient;
 
 Then the ResNet-50 path (``paddle_tpu_torch/bench.py``'s step with the conv
 kernels on: ``csrc/brgemm.cu`` for the 1x1 convs, ``csrc/conv_kxk.cu`` for
@@ -174,9 +174,10 @@ T1. kernels  the flash forward (route counted) and then the backward's dq
              at BERT's, at a ragged masked shape, at a causal one (the
              tensor-core dK/dV skips the query tiles before a key tile),
              causal with a kv mask (no skip), at D = 16 and 32 and at
-             D = 128, in float32 and bfloat16, the dK/dV route counted:
-             ``dkv_route``'s tensor cores (``csrc/flash_bwd_dkv_tc.cu``)
-             for bf16 with D <= 64, the SIMT kernel for float32 and
+             D = 128, in float32 and bfloat16, the dQ and dK/dV routes
+             counted: ``bwd_route``'s tensor cores
+             (``csrc/flash_bwd_dq_tc.cu``, ``csrc/flash_bwd_dkv_tc.cu``)
+             for bf16 with D <= 64, the SIMT kernels for float32 and
              D = 128; the fused
              optimizer update against the plain unfused sweep (Adam on the
              transformer_long parameters, SGD, Momentum with a global-norm
@@ -191,19 +192,19 @@ T2. train    three Adam steps in float32 with the fused update, three with
              routes (two more runs), the key biases within
              ``ADAM_PAIR_BOUND``; the parameters after step 1 equal
              wherever the two gradients agree; kernel launches counted per
-             step (12 flash forward and 12 dk/dv, each on its SIMT kernel
-             in float32 and on the tensor cores in bf16, 12 dq, one fused
+             step (12 flash forward, 12 dq and 12 dk/dv, each on its SIMT
+             kernel in float32 and on the tensor cores in bf16, one fused
              update); loss and gradients of remat "save_flash", "none"
              (24 forward launches) and no remat held equal; three bf16
              steps reported;
 T3. numbers  one profiled bf16 training step: step time, tokens/s, device
-             busy time and idle share, top kernels (12 tensor-core forward
-             and 12 tensor-core dk/dv launches, no SIMT one of either), and
+             busy time and idle share, top kernels (12 tensor-core
+             forward, dq and dk/dv launches each, no SIMT one of any), and
              each kernel's device time at the path's shape; beside it its
              bound, and its plain version and a library yardstick that the
              port never calls (SDPA forward and backward,
              ``torch.optim.Adam(fused=True)``) timed with CUDA events, and
-             the SIMT forward and dk/dv on the same inputs.
+             the SIMT forward, dq and dk/dv on the same inputs.
 
 The last lines are the ``{"kernels": [...]}`` object, the card's name and
 power limit as ``nvidia-smi`` gives them, and the result object
@@ -249,6 +250,12 @@ KERNELS = {
     "flash_bwd_dq": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "paddle_tpu/kernels/attention.py:345",
+    },
+    # the same TPU kernel's second implementation: bf16 on the tensor cores
+    "flash_bwd_dq_tc": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_bwd_dq_tc.cu",
         "replaces": "paddle_tpu/kernels/attention.py:345",
     },
     "flash_bwd_dkv": {
@@ -355,17 +362,17 @@ def expect_route(dtype, tq, d):
         else "simt"
 
 
-def expect_dkv_route(dtype, d):
-    """The dK/dV kernel a check must see launched (contiguous, aligned
-    inputs): the tensor-core kernel for bf16 with D a multiple of 16 in
-    16..64; the SIMT kernel for float32 and D = 128."""
+def expect_bwd_route(dtype, d):
+    """The dQ and the dK/dV kernel a check must see launched (contiguous,
+    aligned inputs): the tensor-core kernels for bf16 with D a multiple of
+    16 in 16..64; the SIMT kernels for float32 and D = 128."""
     return "tc" if dtype == torch.bfloat16 and d % 16 == 0 and \
         16 <= d <= 64 else "simt"
 
 
 def route_counts(kernel="flash_fwd"):
-    """The launches of ``kernel`` ("flash_fwd" or "flash_bwd_dkv") so far,
-    by route."""
+    """The launches of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") so far, by route."""
     counts = train_counts()
     return {"tc": counts[f"{kernel}_tc"], "simt": counts[f"{kernel}_simt"]}
 
@@ -445,8 +452,9 @@ def phase_build():
             "per_kernel": {n: i["seconds"]
                            for n, i in native_build.build_info.items()},
             "sass": {name: sass_check(paths[name], f"{name}_kernel", "HGMMA")
-                     for name in ("flash_fwd_tc", "flash_bwd_dkv_tc",
-                                  "conv_kxk_fwd_tc", "conv_kxk_dw_tc")}}
+                     for name in ("flash_fwd_tc", "flash_bwd_dq_tc",
+                                  "flash_bwd_dkv_tc", "conv_kxk_fwd_tc",
+                                  "conv_kxk_dw_tc")}}
 
 
 def sass_check(lib, symbol, opcode):
@@ -1002,8 +1010,8 @@ _COUNTED = {}
 def counted_wrappers():
     """(wrapper, attribute) that counts each kernel's launches, taken once,
     before ``plain_kernels`` swaps any of them out: every forward launch,
-    each forward route's, the backward kernels' (every dK/dV launch and
-    each dK/dV route's) and the fused update's."""
+    each forward route's, the backward kernels' (every dQ and every dK/dV
+    launch, and each route's) and the fused update's."""
     if not _COUNTED:
         from paddle_tpu_torch.kernels import attention as A
         from paddle_tpu_torch.kernels import fused_update as FU
@@ -1012,6 +1020,8 @@ def counted_wrappers():
             flash_fwd_tc=(A.flash_fwd_cuda, "tc_launches"),
             flash_fwd_simt=(A.flash_fwd_cuda, "simt_launches"),
             flash_bwd_dq=(A.flash_bwd_dq_cuda, "launches"),
+            flash_bwd_dq_tc=(A.flash_bwd_dq_cuda, "tc_launches"),
+            flash_bwd_dq_simt=(A.flash_bwd_dq_cuda, "simt_launches"),
             flash_bwd_dkv=(A.flash_bwd_dkv_cuda, "launches"),
             flash_bwd_dkv_tc=(A.flash_bwd_dkv_cuda, "tc_launches"),
             flash_bwd_dkv_simt=(A.flash_bwd_dkv_cuda, "simt_launches"),
@@ -1028,24 +1038,29 @@ def zero_counts():
         setattr(f, a, 0)
 
 
-def fwd_counts(n, dtype, kernel="flash_fwd"):
-    """The counts of ``kernel`` (the forward, or "flash_bwd_dkv") for ``n``
-    calls at shapes whose bf16 route is the tensor cores (the training
-    paths'): all on that route in bf16, all on the SIMT kernel in
-    float32."""
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def route_split(n, dtype, kernel):
+    """The counts of ``kernel`` (one of ``FLASH_KERNELS``) for ``n`` calls
+    at shapes whose bf16 route is the tensor cores (the training paths'):
+    all on that route in bf16, all on the SIMT kernel in float32."""
     tc = n if dtype == torch.bfloat16 else 0
     return {kernel: n, f"{kernel}_tc": tc, f"{kernel}_simt": n - tc}
 
 
-def dkv_counts(n, dtype):
-    return fwd_counts(n, dtype, "flash_bwd_dkv")
+def flash_counts(n, dtype):
+    """The counts of the forward, dQ and dK/dV, ``n`` calls each, by
+    route (``route_split``)."""
+    return {key: c for kernel in FLASH_KERNELS
+            for key, c in route_split(n, dtype, kernel).items()}
 
 
 class plain_kernels:
     """Route the flash kernels to their plain versions, behind the same
     wrappers, autograd op and remat policy: the forward, dQ and dK/dV
-    (both of its routes, which ``flash_bwd_dkv_cuda`` picks between) count
-    no launch."""
+    (both routes of each, which ``flash_bwd_dq_cuda`` and
+    ``flash_bwd_dkv_cuda`` pick between) count no launch."""
 
     def __enter__(self):
         from paddle_tpu_torch.kernels import attention as A
@@ -1164,19 +1179,22 @@ def phase_train_kernels(dev, seed):
             if dtype == torch.bfloat16 and shape is TRAIN_FLASH:
                 worst["flash_fwd_tc"] = diff.max().item()
             del o, ro, rl, diff
+            bwd_route = expect_bwd_route(dtype, d)
+            dq_routes = route_counts("flash_bwd_dq")
             dq = flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, m)
             dkv_routes = route_counts("flash_bwd_dkv")
-            dkv_route = expect_dkv_route(dtype, d)
             dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale,
                                         m)
             torch.cuda.synchronize()
-            check_route("T1", f"{name} {dtype}", dkv_routes, dkv_route,
-                        kernel="flash_bwd_dkv")
+            for kernel, before in (("flash_bwd_dq", dq_routes),
+                                   ("flash_bwd_dkv", dkv_routes)):
+                check_route("T1", f"{name} {dtype}", before, bwd_route,
+                            kernel=kernel)
             want = flash_attention_bwd_reference(q, k, v, do, lse, dvec,
                                                  causal, scale, m)
             rec = {"case": name, "dtype": str(dtype).split(".")[-1],
                    "shape": [b, h, tq, tk, d], "causal": causal,
-                   "dkv_route": dkv_route}
+                   "bwd_route": bwd_route}
             ok = True
             for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
                 rec[nm] = bwd_errors(got, ref)
@@ -1185,7 +1203,7 @@ def phase_train_kernels(dev, seed):
             rec["ok"] = ok
             results.append(rec)
             log(f"[T1] flash_bwd {rec['dtype']:>8} {name:<14} "
-                f"[{b},{h},{tq},{tk},{d}] dk/dv on {dkv_route}; "
+                f"[{b},{h},{tq},{tk},{d}] dq, dk/dv on {bwd_route}; "
                 f"max|kernel-plain| dq "
                 f"{rec['dq']['max_abs_err']:.3e} dk "
                 f"{rec['dk']['max_abs_err']:.3e} dv "
@@ -1199,19 +1217,16 @@ def phase_train_kernels(dev, seed):
                 f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail("T1", f"flash_bwd {rec}")
-            # the kernels line's errors at the paths' shapes: dq in bf16;
-            # dK/dV by route, the tensor cores' in bf16 and the SIMT
-            # kernel's in float32, the paths where its route still runs
+            # the kernels line's errors at the paths' shapes, dQ and dK/dV
+            # by route: the tensor cores' in bf16 and the SIMT kernels' in
+            # float32, the paths where their route still runs
             if shape is TRAIN_FLASH or shape is BERT_TRAIN_FLASH:
-                if dtype == torch.bfloat16:
-                    worst["flash_bwd_dq"] = max(
-                        worst.get("flash_bwd_dq", 0.0),
-                        rec["dq"]["max_abs_err"])
-                key = "flash_bwd_dkv_tc" if dkv_route == "tc" \
-                    else "flash_bwd_dkv"
-                worst[key] = max(worst.get(key, 0.0),
-                                 rec["dk"]["max_abs_err"],
-                                 rec["dv"]["max_abs_err"])
+                tc = "_tc" if bwd_route == "tc" else ""
+                for key, errs in (("flash_bwd_dq", ("dq",)),
+                                  ("flash_bwd_dkv", ("dk", "dv"))):
+                    worst[key + tc] = max(
+                        [worst.get(key + tc, 0.0)]
+                        + [rec[nm]["max_abs_err"] for nm in errs])
             del q, k, v, do, dq, dk, dv, want
             torch.cuda.empty_cache()
     return results, worst
@@ -1375,7 +1390,7 @@ def initial_grads(model32, init, batch, per_step, calls, seed):
             loss = loss_fn_for(model32, batch)(params)
             g = torch.autograd.grad(loss, list(params.values()))
             got = {k: v - before[k] for k, v in train_counts().items()}
-        expect = dict(per_step, **fwd_counts(fwd, torch.float32),
+        expect = dict(per_step, **route_split(fwd, torch.float32, "flash_fwd"),
                       fused_update=0) if fwd else {k: 0 for k in per_step}
         if got != expect:
             fail("T2", f"gradients {name}: launched {got}, expected {expect}")
@@ -1485,8 +1500,7 @@ def phase_train(model32, dev, seed):
     init = {k: v.detach().clone() for k, v in model32.state_dict().items()}
     # one flash call per encoder layer and per cross-attention: 12
     calls = 2 * LONG_CFG["n_layer"]
-    per_step = {**fwd_counts(calls, torch.float32), "flash_bwd_dq": calls,
-                **dkv_counts(calls, torch.float32), "fused_update": 1}
+    per_step = {**flash_counts(calls, torch.float32), "fused_update": 1}
     zero_counts()
     out, runs = {}, {}
     for fused in (True, False):
@@ -1569,8 +1583,7 @@ def phase_train(model32, dev, seed):
     model_bf.load_state_dict(init)
     before = train_counts()
     losses, _ = train_steps(model_bf, batch, STEPS, True, dict(
-        per_step, **fwd_counts(calls, torch.bfloat16),
-        **dkv_counts(calls, torch.bfloat16)))
+        per_step, **flash_counts(calls, torch.bfloat16)))
     for k, v in train_counts().items():
         path_counts[k] += v - before[k]
     out["bf16_losses"] = losses
@@ -1610,15 +1623,17 @@ def attention_bwd_bound(q, k, mask, causal, which):
 KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
                   "flash_fwd_tc": "flash_fwd_tc_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dq_tc": "flash_bwd_dq_tc_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_kernel",
                   "flash_bwd_dkv_tc": "flash_bwd_dkv_tc_kernel",
                   "fused_update": "fused_update_kernel"}
-# the kernels of a bf16 transformer_long step (its forward and dK/dV on the
-# tensor cores)
-T3_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv_tc",
+# the kernels of a bf16 transformer_long step (its forward, dQ and dK/dV on
+# the tensor cores)
+T3_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
               "fused_update")
 # each flash kernel on the tensor cores and its SIMT twin
 FLASH_TC_TWIN = {"flash_fwd_tc": "flash_fwd",
+                 "flash_bwd_dq_tc": "flash_bwd_dq",
                  "flash_bwd_dkv_tc": "flash_bwd_dkv"}
 
 
@@ -1720,7 +1735,8 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         "plain_ms": numbers["flash_fwd_tc"]["plain_ms"],
         "library_ms": numbers["flash_fwd_tc"]["library_ms"],
         "bound_ms": bnd[0], "bound_by": bnd[1]}
-    for key, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv_tc", "dkv")):
+    for key, which in (("flash_bwd_dq_tc", "dq"),
+                       ("flash_bwd_dkv_tc", "dkv")):
         bnd = bound_ms(*attention_bwd_bound(q, k, m, causal, which),
                        torch.bfloat16)
         # the plain version computes dq, dk and dv in one pass; no library
@@ -1728,18 +1744,20 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
         numbers[key].update(plain_ms=plain_bwd, library_ms=None,
                             library_pair_ms=lib_bwd, bound_ms=bnd[0],
                             bound_by=bnd[1])
-    # the SIMT dK/dV on the same inputs, the route this shape took before
-    # the tensor-core kernel (CUDA events: ~20 ms calls, no launch cost)
-    dkv = numbers["flash_bwd_dkv_tc"]
-    dkv["simt_ms"] = time_ms(lambda: A.flash_bwd_dkv_launch(
-        "simt", *bwd_args), [()], 2)
-    dkv_simt = {key: dkv[key] for key in ("plain_ms", "library_ms",
-                                          "library_pair_ms", "bound_ms",
-                                          "bound_by")}
-    dkv_simt["ms"] = dkv["simt_ms"]
+    # the SIMT dQ and dK/dV on the same inputs, the route this shape took
+    # before the tensor-core kernels (CUDA events: 16-20 ms calls, no
+    # launch cost)
+    simt_recs = {"flash_fwd": simt}
+    for name, launch in (("flash_bwd_dq", A.flash_bwd_dq_launch),
+                         ("flash_bwd_dkv", A.flash_bwd_dkv_launch)):
+        tc = numbers[name + "_tc"]
+        tc["simt_ms"] = time_ms(lambda: launch("simt", *bwd_args), [()], 2)
+        simt_recs[name] = dict({key: tc[key] for key in (
+            "plain_ms", "library_ms", "library_pair_ms", "bound_ms",
+            "bound_by")}, ms=tc["simt_ms"])
     del q, k, v, do, ql, kl, vl, lib_o
     torch.cuda.empty_cache()
-    for name, rec in (("flash_fwd", simt), ("flash_bwd_dkv", dkv_simt)):
+    for name, rec in simt_recs.items():
         log(f"[T3] {name} (SIMT) at the path's shape, same inputs: "
             f"{rec['ms']:.3f} ms (CUDA events) against the tensor-core "
             f"kernel's {numbers[name + '_tc']['ms']:.3f} ms (device)")
@@ -1778,8 +1796,7 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
             f"{r['plain_ms']:.3f} ms, {lib} (CUDA events); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
             f"{r['bound_ms'] / r['ms'] * 100:.2f}% of the kernel's time")
-    numbers["flash_fwd"] = simt
-    numbers["flash_bwd_dkv"] = dkv_simt
+    numbers.update(simt_recs)
     return step_rec, numbers
 
 
@@ -3111,12 +3128,13 @@ LN_FLOPS_PER_ELEMENT = 8          # the kernel's float32 operations
 
 B1_BATCH, B_LEN, B_STEPS, B_TIMED = 8, 128, 3, 10
 B_KEYS = ("flash_fwd", "flash_fwd_tc", "flash_fwd_simt", "flash_bwd_dq",
-          "flash_bwd_dkv", "flash_bwd_dkv_tc", "flash_bwd_dkv_simt",
-          "layer_norm", "fused_update")
+          "flash_bwd_dq_tc", "flash_bwd_dq_simt", "flash_bwd_dkv",
+          "flash_bwd_dkv_tc", "flash_bwd_dkv_simt", "layer_norm",
+          "fused_update")
 B_SYMBOLS = dict(KERNEL_SYMBOLS, layer_norm="layer_norm_kernel")
 # the flash kernels of B2's bf16 use_pallas step: 12 launches each, the
-# forward and dK/dV on the tensor cores (their SIMT twins none)
-B2_KERNELS = ("flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv_tc")
+# forward, dQ and dK/dV on the tensor cores (their SIMT twins none)
+B2_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
 
 
 def ln_inputs(n, d, dtype, affine, dev, seed, sets=1):
@@ -3297,13 +3315,12 @@ def zero_b_counts():
 
 
 def b_expect(use_pallas, dtype):
-    """Launches of one BERT step: 12 flash forward and 12 dK/dV (each on
-    the tensor cores in bf16, on its SIMT kernel in float32) and 12 dQ
-    with ``use_pallas``; no row-norm launch (the LayerNorms see [B, T, H])
-    and no fused update (the step is unfused); none without."""
+    """Launches of one BERT step: 12 flash forward, 12 dQ and 12 dK/dV
+    (each on the tensor cores in bf16, on its SIMT kernel in float32) with
+    ``use_pallas``; no row-norm launch (the LayerNorms see [B, T, H]) and
+    no fused update (the step is unfused); none without."""
     per = 12 if use_pallas else 0
-    return {**fwd_counts(per, dtype), "flash_bwd_dq": per,
-            **dkv_counts(per, dtype), "layer_norm": 0, "fused_update": 0}
+    return {**flash_counts(per, dtype), "layer_norm": 0, "fused_update": 0}
 
 
 def bert_batch(batch, vocab, dev, seed):
@@ -3432,7 +3449,11 @@ def phase_bert_train(dev, seed):
                 fail("B1", f"{key}: non-finite loss {r['losses']}")
     del models
     rec = {"losses": {k: r["losses"] for k, r in runs.items()},
-           "launches_per_step": runs["kernel"]["counts"][0]}
+           "launches_per_step": runs["kernel"]["counts"][0],
+           # the runs through the kernels, float32 (the SIMT routes)
+           "launches": {k: sum(c[k] for n in ("kernel", "kernel_perm")
+                               for c in runs[n]["counts"])
+                        for k in B_KEYS}}
     for a, ref in (("kernel", "plain"), ("dense", "kernel")):
         rel = max(abs(x - y) / abs(y) for x, y in
                   zip(runs[a]["losses"], runs[ref]["losses"]))
@@ -3635,20 +3656,23 @@ def main(argv=None):
     report["train_numbers"] = train_numbers
     report["seconds"] = time.perf_counter() - t_start
 
-    # the forward and dK/dV kernels by route: the serving path's (the
-    # forward), the training path's (float32 on the SIMT kernels, bf16 on
-    # the tensor cores) and the BERT bench step's; each SIMT row counts its
-    # route's launches, not the kernel's total
+    # the flash kernels by route: the serving path's (the forward), the
+    # training path's (float32 on the SIMT kernels, bf16 on the tensor
+    # cores), the BERT bench step's (bf16) and, for dQ and dK/dV, B1's
+    # float32 BERT steps; each SIMT row counts its route's launches, not
+    # the kernel's total
     launches = dict(report["train"]["launches"])
     bert_launches = dict(report["bert_bench"]["use_pallas"]["launches"])
+    b1_launches = dict(report["bert_train"]["launches"])
     for simt in FLASH_TC_TWIN.values():
-        launches[simt] = launches.pop(f"{simt}_simt")
-        bert_launches[simt] = bert_launches.pop(f"{simt}_simt")
+        for counts in (launches, bert_launches, b1_launches):
+            counts[simt] = counts.pop(f"{simt}_simt")
     launches["flash_fwd"] += serving_launches["simt"]
     launches["flash_fwd_tc"] += serving_launches["tc"]
-    for key in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq",
-                "flash_bwd_dkv", "flash_bwd_dkv_tc"):
+    for key in (*FLASH_TC_TWIN, *FLASH_TC_TWIN.values()):
         launches[key] += bert_launches[key]
+        if key.startswith("flash_bwd_"):
+            launches[key] += b1_launches[key]
     launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
     # default), where every 3x3 forward and weight gradient takes the
@@ -3711,12 +3735,13 @@ def main(argv=None):
             rec["shapes"] = [{k: r.get(k) for k in shape_keys}
                              for r in report["numbers"]
                              if r["route"] == route] + [train]
-        elif name in ("flash_bwd_dkv", "flash_bwd_dkv_tc"):
+        elif name.startswith("flash_bwd_"):
             rec.update(train_numbers[name])
             counter = name if name.endswith("_tc") else name + "_simt"
             rec["launches_by_path"] = {
                 "training": report["train"]["launches"][counter],
-                "bert": bert_launches[name]}
+                "bert": bert_launches[name],
+                "bert_f32": b1_launches[name]}
         elif name in RESNET_KERNELS:
             rec.update({k: report["resnet_numbers"][name][k] for k in keys})
             if name in by_path:

@@ -4,7 +4,7 @@
 //
 // Replaces: the Pallas kernel _flash_bwd_dkv_kernel, launched by
 // _flash_train_bwd in paddle_tpu/kernels/attention.py, for bf16 inputs with
-// 16 <= D <= 64, D % 16 == 0 (kernels/attention.py's dkv_route; the rest
+// 16 <= D <= 64, D % 16 == 0 (kernels/attention.py's bwd_route; the rest
 // takes flash_bwd.cu's flash_bwd_dkv). It computes what that SIMT kernel
 // computes, with the same masking contract, for one key tile over every
 // query tile:
@@ -89,43 +89,6 @@ constexpr int kDoOff = kQOff + kStages * kTile;
 constexpr int kLseOff = kDoOff + kStages * kTile;
 constexpr int kDvecOff = kLseOff + kStages * kQueries * 4;
 constexpr int kSmemBytes = kDvecOff + kStages * kQueries * 4 + kAtomBytes;
-
-// Stage rows [0, 64) of a row-major [*, d] bf16 matrix whose first row is
-// `src` (`nvalid` rows valid) into the swizzled tile at `dst`. Rows at or
-// past `nvalid` and columns at or past d are zero.
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          int nvalid, int d) {
-#pragma unroll
-  for (int it = 0; it < 64 * 8 / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i >> 3;
-    const int c = i & 7;
-    const bool ok = r < nvalid && c * 8 < d;
-    cp_async16(dst + swizzled(r, c), ok ? src + (size_t)r * d + c * 8 : src,
-               ok ? 16 : 0);
-  }
-}
-
-// X^T = A B^T for one query tile: A [64 keys, D] and B [64 queries, D] both
-// K-major; every k16 step of the padded width (zero columns add zeros).
-__device__ __forceinline__ void transposed_product(float (&x)[32],
-                                                   uint32_t a_s,
-                                                   uint32_t b_s) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_nn_n64(x, k_major_desc(a_s, kk), k_major_desc(b_s, kk), kk > 0);
-}
-
-// acc [64 keys, D] += F B: F [64 keys, 64 queries] from registers, B
-// [64 queries, D] MN-major.
-__device__ __forceinline__ void accumulate(float (&acc)[32],
-                                           const uint32_t (&f)[4][4],
-                                           uint32_t b_s) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rt_n64(acc, f[kk], mn_major_desc(b_s, kk));
-}
 
 // P and dS of one query tile on the accumulator fragments: s[4j + 2r + e]
 // and dp[...] are key rows[r], query q0 + 8j + 2 quad + e. Leaves p in s
@@ -227,8 +190,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   // query tile t into its stage: Q, dO, and its lse and dvec (zero past Tq)
   auto load_queries = [&](int t) {
     const int q0 = t * kQueries;
-    load_tile(q_tile(t), qb + (size_t)q0 * d, tq - q0, d);
-    load_tile(do_tile(t), dob + (size_t)q0 * d, tq - q0, d);
+    load_tile_64(q_tile(t), qb + (size_t)q0 * d, tq - q0, d);
+    load_tile_64(do_tile(t), dob + (size_t)q0 * d, tq - q0, d);
     const int i = threadIdx.x & (kQueries - 1);
     const bool is_lse = threadIdx.x < kQueries;
     float* dst = (is_lse ? lse_s : dvec_s) + (t % kStages) * kQueries + i;
@@ -256,8 +219,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
-  load_tile(k_s, k + ((size_t)bh * tk + k0) * d, tk - k0, d);
-  load_tile(v_s, v + ((size_t)bh * tk + k0) * d, tk - k0, d);
+  load_tile_64(k_s, k + ((size_t)bh * tk + k0) * d, tk - k0, d);
+  load_tile_64(v_s, v + ((size_t)bh * tk + k0) * d, tk - k0, d);
   load_queries(lo);
   cp_async_commit();
 
@@ -270,8 +233,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   fence_regs(s);
   fence_regs(dp);
   wgmma_fence();
-  transposed_product(s, k_s, q_tile(lo));
-  transposed_product(dp, v_s, do_tile(lo));
+  product_nn_64(s, k_s, q_tile(lo));
+  product_nn_64(dp, v_s, do_tile(lo));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -294,12 +257,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     fence_frags(dsa);
     fence_frags(dsl);
     wgmma_fence();
-    transposed_product(s, k_s, q_tile(t));
-    transposed_product(dp, v_s, do_tile(t));
+    product_nn_64(s, k_s, q_tile(t));
+    product_nn_64(dp, v_s, do_tile(t));
     wgmma_commit();
-    accumulate(acc_dv, pa, do_tile(t - 1));
-    accumulate(acc_dk, dsa, q_tile(t - 1));
-    accumulate(acc_dk, dsl, q_tile(t - 1));
+    product_rt_64(acc_dv, pa, do_tile(t - 1));
+    product_rt_64(acc_dk, dsa, q_tile(t - 1));
+    product_rt_64(acc_dk, dsl, q_tile(t - 1));
     wgmma_commit();
     wgmma_wait<1>();      // S^T and dP^T are done; dV, dK may still run
     fence_regs(s);
@@ -324,9 +287,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   fence_frags(dsa);
   fence_frags(dsl);
   wgmma_fence();
-  accumulate(acc_dv, pa, do_tile(n_qt - 1));
-  accumulate(acc_dk, dsa, q_tile(n_qt - 1));
-  accumulate(acc_dk, dsl, q_tile(n_qt - 1));
+  product_rt_64(acc_dv, pa, do_tile(n_qt - 1));
+  product_rt_64(acc_dk, dsa, q_tile(n_qt - 1));
+  product_rt_64(acc_dk, dsl, q_tile(n_qt - 1));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc_dk);

@@ -2,10 +2,12 @@
 // (sm_90a): the 128-byte-swizzled tile layout that wgmma's shared-memory
 // descriptors read, the descriptors, the bf16 wgmma wrappers (both operands
 // in shared memory, or A from registers, with the conversion of float32
-// accumulators into A fragments), a cp.async ring of stages, and the
+// accumulators into A fragments), the [64, 64] tile loads and products the
+// attention backward kernels share, a cp.async ring of stages, and the
 // base-2 exponent an attention kernel's softmax takes.
-// conv_kxk_dw_tc.cu, conv_kxk_fwd_tc.cu and flash_bwd_dkv_tc.cu build on
-// it; the SIMT core (igemm.cuh) stays beside it for float32.
+// conv_kxk_dw_tc.cu, conv_kxk_fwd_tc.cu, flash_bwd_dq_tc.cu and
+// flash_bwd_dkv_tc.cu build on it; the SIMT core (igemm.cuh) stays beside
+// it for float32.
 //
 // The layout: a tile is a set of 64-column blocks, each [rows][64 bf16],
 // one 128-byte row per row; the 16-byte chunk c of row r sits at
@@ -331,6 +333,43 @@ __device__ __forceinline__ void to_fragments_split(uint32_t (&hi)[4][4],
       lo[kk][i] = *reinterpret_cast<const uint32_t*>(&l2);
     }
   }
+}
+
+// Stage rows [0, 64) of a row-major [*, d] bf16 matrix (d <= 64) whose
+// first row is `src` (`nvalid` rows valid) into the K-major [64, 64] tile
+// at `dst`, through cp.async by the block's one warpgroup (128 threads).
+// Rows at or past `nvalid` and columns at or past d are zero.
+__device__ __forceinline__ void load_tile_64(uint32_t dst,
+                                             const __nv_bfloat16* src,
+                                             int nvalid, int d) {
+#pragma unroll
+  for (int it = 0; it < 64 * 8 / 128; ++it) {
+    const int i = threadIdx.x + it * 128;
+    const int r = i >> 3;
+    const int c = i & 7;
+    const bool ok = r < nvalid && c * 8 < d;
+    cp_async16(dst + swizzled(r, c), ok ? src + (size_t)r * d + c * 8 : src,
+               ok ? 16 : 0);
+  }
+}
+
+// X[64 x 64] = A B^T: A and B [64, 64] tiles, both K-major in shared
+// memory; every k16 step of the padded width (zero columns add zeros).
+__device__ __forceinline__ void product_nn_64(float (&x)[32], uint32_t a_s,
+                                              uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_nn_n64(x, k_major_desc(a_s, kk), k_major_desc(b_s, kk), kk > 0);
+}
+
+// acc[64 x 64] += F B: F [64, 64] as A fragments in registers
+// (to_fragments), B a [64, 64] tile MN-major in shared memory.
+__device__ __forceinline__ void product_rt_64(float (&acc)[32],
+                                              const uint32_t (&f)[4][4],
+                                              uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rt_n64(acc, f[kk], mn_major_desc(b_s, kk));
 }
 
 // 2^x, one MUFU instruction (relative error ~2^-22).

@@ -20,14 +20,14 @@ dispatcher op ``paddle_tpu_torch::flash_attn``, the counterpart of
 ``flash_attention_trainable``: its forward saves (q, k, v, kv_mask, o, lse)
 and its backward computes ``dvec = sum_d(do * o)`` in float32 and launches
 dQ, then dK/dV (they replace ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``). dQ is ``csrc/flash_bwd.cu``'s SIMT kernel.
-dK/dV is one of two kernels, chosen by the pure rule ``dkv_route``:
-``csrc/flash_bwd_dkv_tc.cu`` (wgmma) for bf16 with D a multiple of 16 in
-16..64 and 16-byte aligned operands, ``csrc/flash_bwd.cu``'s SIMT kernel
-for the rest (float32, other head dims); as in the forward, a failed
-build or launch raises and neither gives way to the other. Being an op,
-it is what a selective-checkpoint policy names to keep (o, lse) under
-remat.
+``_flash_bwd_dkv_kernel``). Each is one of two kernels, chosen by the one
+pure rule ``bwd_route`` that both wrappers call: the tensor cores for
+bf16 with D a multiple of 16 in 16..64 and 16-byte aligned operands
+(``csrc/flash_bwd_dq_tc.cu`` and ``csrc/flash_bwd_dkv_tc.cu``, wgmma), and
+``csrc/flash_bwd.cu``'s SIMT kernels for the rest (float32, other head
+dims); as in the forward, a failed build or launch raises and neither
+gives way to the other. Being an op, it is what a selective-checkpoint
+policy names to keep (o, lse) under remat.
 
 ``flash_attention_reference`` and ``flash_attention_bwd_reference`` are
 the plain versions: the same functions in PyTorch, with the JAX kernels'
@@ -269,101 +269,126 @@ def _bwd_operands(q, k, v, do, lse, dvec, kv_mask):
         ("dvec", dvec, rows, torch.float32)))
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, kv_mask=None):
-    """Launch ``flash_bwd_dq`` of ``csrc/flash_bwd.cu``: dQ of the
-    attention whose forward gave ``lse``, for the output cotangent ``do``
-    (q's shape and dtype) and ``dvec = sum_d(do * o)`` (float32
-    ``[B, H, Tq]``). Inputs as ``flash_fwd_cuda`` takes them; raises on
-    what the kernel does not take and on a launch error."""
-    b, h, tq, d = q.shape
-    mask_ptr = _bwd_operands(q, k, v, do, lse, dvec, kv_mask)
-    lib = _bwd_lib()
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(),
-                               dvec.data_ptr(), mask_ptr, dq.data_ptr(),
-                               b * h, h, tq, k.shape[2], d, float(scale),
-                               int(causal), _DTYPE_CODES[q.dtype],
-                               _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError_t {err}")
-    flash_bwd_dq_cuda.launches += 1
-    return dq
-
-
-def _dkv_tc_lib():
+def _bwd_tc_lib(name, n_ptrs):
+    """The tensor-core backward library ``name``, whose C entry of the
+    same name takes ``n_ptrs`` pointers, then the sizes, scale, causal
+    flag and stream."""
     from paddle_tpu_torch.core import native_build
-    lib = native_build.load("flash_bwd_dkv_tc")
+    lib = native_build.load(name)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd_dkv_tc.argtypes = [p] * 9 + [i] * 5 + [
-            ctypes.c_float, i, p]
-        lib.flash_bwd_dkv_tc.restype = ctypes.c_int
+        entry = getattr(lib, name)
+        entry.argtypes = [p] * n_ptrs + [i] * 5 + [ctypes.c_float, i, p]
+        entry.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
-def dkv_route(dtype, d, aligned):
-    """The dK/dV kernel a CUDA call takes, by a fixed rule: ``"tc"``
-    (``csrc/flash_bwd_dkv_tc.cu``, wgmma) for bfloat16 with D a multiple
-    of 16 in 16..64 and q, k, v and do at 16-byte aligned bases
-    (``aligned``; dk and dv, which the wrapper allocates, always are);
-    ``"simt"`` (``csrc/flash_bwd.cu``) for everything else: float32, whose
-    1e-4 gates no tensor-core input type meets; D from 80 to 128, whose
-    dK and dV accumulators do not fit the tensor-core kernel's registers;
-    other head dims."""
+def bwd_route(dtype, d, aligned):
+    """The dQ and the dK/dV kernel a CUDA call takes, by one fixed rule:
+    ``"tc"`` (``csrc/flash_bwd_dq_tc.cu`` and ``csrc/flash_bwd_dkv_tc.cu``,
+    wgmma) for bfloat16 with D a multiple of 16 in 16..64 and q, k, v and
+    do at 16-byte aligned bases (``aligned``; the outputs, which the
+    wrappers allocate, always are); ``"simt"`` (``csrc/flash_bwd.cu``) for
+    everything else: float32, whose 1e-4 gates no tensor-core input type
+    meets; D from 80 to 128, whose accumulators do not fit the tensor-core
+    kernels' registers; other head dims."""
     if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 64 and aligned:
         return "tc"
     return "simt"
+
+
+def _bwd_route_of(q, k, v, do):
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))
+    return bwd_route(q.dtype, q.shape[3], aligned)
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    if route == "tc":
+        wrapper.tc_launches += 1
+    else:
+        wrapper.simt_launches += 1
+
+
+def _bwd_launch(kernel, route, out_like, q, k, v, do, lse, dvec, causal,
+                scale, kv_mask):
+    """Launch backward kernel ``kernel`` (``"flash_bwd_dq"`` or
+    ``"flash_bwd_dkv"``) of ``route`` into new tensors shaped as
+    ``out_like``; count nothing. Returns the outputs. Raises on what the
+    kernel does not take and on a launch error (each C entry refuses what
+    it cannot compute)."""
+    b, h, tq, d = q.shape
+    mask_ptr = _bwd_operands(q, k, v, do, lse, dvec, kv_mask)
+    if route == "tc" and q.dtype != torch.bfloat16:
+        raise TypeError(f"{kernel}_tc takes bfloat16, not {q.dtype}")
+    outs = tuple(torch.empty_like(t) for t in out_like)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), mask_ptr,
+            *(t.data_ptr() for t in outs), b * h, h, tq, k.shape[2], d,
+            float(scale), int(causal))
+    with torch.cuda.device(q.device):
+        if route == "tc":
+            name = f"{kernel}_tc"
+            lib = _bwd_tc_lib(name, 7 + len(outs))
+            err = getattr(lib, name)(*args, _stream(q))
+        elif route == "simt":
+            name = kernel
+            err = getattr(_bwd_lib(), name)(*args, _DTYPE_CODES[q.dtype],
+                                            _stream(q))
+        else:
+            raise ValueError(f"no {kernel} route {route!r}")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    return outs
+
+
+def flash_bwd_dq_launch(route, q, k, v, do, lse, dvec, causal, scale,
+                        kv_mask=None):
+    """Launch the dQ kernel of ``route`` (``"tc"`` or ``"simt"``) on the
+    inputs ``flash_bwd_dq_cuda`` takes; count nothing. Returns dq. Raises
+    as ``_bwd_launch`` does."""
+    return _bwd_launch("flash_bwd_dq", route, (q,), q, k, v, do, lse, dvec,
+                       causal, scale, kv_mask)[0]
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, kv_mask=None):
+    """dQ of the attention whose forward gave ``lse``, for the output
+    cotangent ``do`` (q's shape and dtype) and ``dvec = sum_d(do * o)``
+    (float32 ``[B, H, Tq]``), from the dQ kernel that ``bwd_route`` picks.
+    Inputs as ``flash_fwd_cuda`` takes them. Counts the launch in
+    ``.launches`` and in ``.tc_launches`` or ``.simt_launches``; raises on
+    what the kernel does not take and on a launch error."""
+    route = _bwd_route_of(q, k, v, do)
+    dq = flash_bwd_dq_launch(route, q, k, v, do, lse, dvec, causal, scale,
+                             kv_mask)
+    _count(flash_bwd_dq_cuda, route)
+    return dq
 
 
 def flash_bwd_dkv_launch(route, q, k, v, do, lse, dvec, causal, scale,
                          kv_mask=None):
     """Launch the dK/dV kernel of ``route`` (``"tc"`` or ``"simt"``) on the
     inputs ``flash_bwd_dkv_cuda`` takes; count nothing. Returns (dk, dv).
-    Raises on what the kernel does not take and on a launch error (each C
-    entry refuses what it cannot compute)."""
-    b, h, tq, d = q.shape
-    mask_ptr = _bwd_operands(q, k, v, do, lse, dvec, kv_mask)
-    if route == "tc" and q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_bwd_dkv_tc takes bfloat16, not {q.dtype}")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dvec.data_ptr(), mask_ptr, dk.data_ptr(),
-            dv.data_ptr(), b * h, h, tq, k.shape[2], d, float(scale),
-            int(causal))
-    with torch.cuda.device(q.device):
-        if route == "tc":
-            err = _dkv_tc_lib().flash_bwd_dkv_tc(*args, _stream(q))
-        elif route == "simt":
-            err = _bwd_lib().flash_bwd_dkv(*args, _DTYPE_CODES[q.dtype],
-                                           _stream(q))
-        else:
-            raise ValueError(f"no dK/dV route {route!r}")
-    if err != 0:
-        name = "flash_bwd_dkv_tc" if route == "tc" else "flash_bwd_dkv"
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    return dk, dv
+    Raises as ``_bwd_launch`` does."""
+    return _bwd_launch("flash_bwd_dkv", route, (k, v), q, k, v, do, lse,
+                       dvec, causal, scale, kv_mask)
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, dvec, causal, scale, kv_mask=None):
-    """(dK, dV) from the dK/dV kernel that ``dkv_route`` picks, with the
+    """(dK, dV) from the dK/dV kernel that ``bwd_route`` picks, with the
     inputs of ``flash_bwd_dq_cuda``. Counts the launch in ``.launches``
     and in ``.tc_launches`` or ``.simt_launches``."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))
-    route = dkv_route(q.dtype, q.shape[3], aligned)
+    route = _bwd_route_of(q, k, v, do)
     dk, dv = flash_bwd_dkv_launch(route, q, k, v, do, lse, dvec, causal,
                                   scale, kv_mask)
-    flash_bwd_dkv_cuda.launches += 1
-    if route == "tc":
-        flash_bwd_dkv_cuda.tc_launches += 1
-    else:
-        flash_bwd_dkv_cuda.simt_launches += 1
+    _count(flash_bwd_dkv_cuda, route)
     return dk, dv
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.tc_launches = 0
+flash_bwd_dq_cuda.simt_launches = 0
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.tc_launches = 0
 flash_bwd_dkv_cuda.simt_launches = 0

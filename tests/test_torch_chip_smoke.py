@@ -104,7 +104,8 @@ def test_training_phase_shapes_are_transformer_long():
         chip_smoke.LONG_LEN, cfg["d_model"] // cfg["n_head"], False)
     assert chip_smoke.SOURCES == ["brgemm", "conv_kxk", "conv_kxk_dw_tc",
                                   "conv_kxk_fwd_tc", "flash_bwd",
-                                  "flash_bwd_dkv_tc", "flash_fwd",
+                                  "flash_bwd_dkv_tc", "flash_bwd_dq_tc",
+                                  "flash_fwd",
                                   "flash_fwd_tc", "fused_update", "layer_norm",
                                   "pool_fused", "seqpool"]
 
@@ -165,7 +166,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 16
+    assert len(chip_smoke.KERNELS) == 17
 
 
 def test_kernels_line_has_the_tensor_core_weight_gradient_row():
@@ -394,15 +395,18 @@ def test_layer_norm_gate_allows_one_ulp_and_no_more(dtype, mant):
 
 
 def test_bert_launches_a_step():
-    """B1's float32 steps and B2's bf16 ones: the forward and dK/dV split
-    by dtype, the tensor cores in bf16 and the SIMT kernels in float32."""
+    """B1's float32 steps and B2's bf16 ones: the forward, dQ and dK/dV
+    split by dtype, the tensor cores in bf16 and the SIMT kernels in
+    float32."""
     assert chip_smoke.b_expect(True, torch.bfloat16) == {
         "flash_fwd": 12, "flash_fwd_tc": 12, "flash_fwd_simt": 0,
-        "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "flash_bwd_dkv_tc": 12,
+        "flash_bwd_dq": 12, "flash_bwd_dq_tc": 12, "flash_bwd_dq_simt": 0,
+        "flash_bwd_dkv": 12, "flash_bwd_dkv_tc": 12,
         "flash_bwd_dkv_simt": 0, "layer_norm": 0, "fused_update": 0}
     assert chip_smoke.b_expect(True, torch.float32) == dict(
         chip_smoke.b_expect(True, torch.bfloat16), flash_fwd_tc=0,
-        flash_fwd_simt=12, flash_bwd_dkv_tc=0, flash_bwd_dkv_simt=12)
+        flash_fwd_simt=12, flash_bwd_dq_tc=0, flash_bwd_dq_simt=12,
+        flash_bwd_dkv_tc=0, flash_bwd_dkv_simt=12)
     for dtype in (torch.float32, torch.bfloat16):
         assert set(chip_smoke.b_expect(False, dtype).values()) == {0}
         assert set(chip_smoke.b_expect(False, dtype)) == set(
@@ -490,9 +494,9 @@ def test_check_shapes_cover_both_routes_and_the_new_cases():
 
 
 def test_fwd_counts_split_the_forward_by_route():
-    assert chip_smoke.fwd_counts(12, torch.bfloat16) == {
+    assert chip_smoke.route_split(12, torch.bfloat16, "flash_fwd") == {
         "flash_fwd": 12, "flash_fwd_tc": 12, "flash_fwd_simt": 0}
-    assert chip_smoke.fwd_counts(24, torch.float32) == {
+    assert chip_smoke.route_split(24, torch.float32, "flash_fwd") == {
         "flash_fwd": 24, "flash_fwd_tc": 0, "flash_fwd_simt": 24}
 
 
@@ -503,7 +507,7 @@ def test_dkv_counts_split_the_dkv_by_dtype(dtype, tc, simt):
     """T2's steps and B1/B2's: every dK/dV of a training path (D = 64) on
     the tensor cores in bf16 and on the SIMT kernel in float32, and the
     counters ``counted_wrappers`` reads hold both routes."""
-    assert chip_smoke.dkv_counts(12, dtype) == {
+    assert chip_smoke.route_split(12, dtype, "flash_bwd_dkv") == {
         "flash_bwd_dkv": 12, "flash_bwd_dkv_tc": tc,
         "flash_bwd_dkv_simt": simt}
     keys = set(chip_smoke.counted_wrappers())
@@ -522,8 +526,64 @@ def test_kernels_line_has_the_tensor_core_dkv_row():
                    "replaces": "paddle_tpu/kernels/attention.py:367"}
     assert simt["replaces"] == row["replaces"]
     assert "flash_bwd_dkv_tc" in chip_smoke.SOURCES
+    assert chip_smoke.FLASH_TC_TWIN["flash_bwd_dkv_tc"] == "flash_bwd_dkv"
+
+
+@pytest.mark.parametrize("dtype,tc,simt", [(torch.bfloat16, 12, 0),
+                                           (torch.float32, 0, 12)],
+                         ids=["bf16", "f32"])
+def test_route_split_splits_the_dq_by_dtype(dtype, tc, simt):
+    """T2's steps and B1/B2's: every dQ of a training path (D = 64) on the
+    tensor cores in bf16 and on the SIMT kernel in float32; the counters
+    ``counted_wrappers`` reads hold both routes, and ``flash_counts`` is
+    the three flash kernels' counts together."""
+    assert chip_smoke.route_split(12, dtype, "flash_bwd_dq") == {
+        "flash_bwd_dq": 12, "flash_bwd_dq_tc": tc, "flash_bwd_dq_simt": simt}
+    assert {"flash_bwd_dq", "flash_bwd_dq_tc",
+            "flash_bwd_dq_simt"} <= set(chip_smoke.counted_wrappers())
+    counts = chip_smoke.flash_counts(12, dtype)
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert (counts.pop(kernel), counts.pop(f"{kernel}_tc"),
+                counts.pop(f"{kernel}_simt")) == (12, tc, simt)
+    assert counts == {}
+
+
+def test_kernels_line_has_the_tensor_core_dq_row():
+    """The 17th row: the second implementation of the TPU kernel that the
+    SIMT dQ replaces, built from its own source and checked for HGMMA."""
+    row, simt = (chip_smoke.KERNELS["flash_bwd_dq_tc"],
+                 chip_smoke.KERNELS["flash_bwd_dq"])
+    assert row == {"route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/flash_bwd_dq_tc.cu",
+                   "replaces": "paddle_tpu/kernels/attention.py:345"}
+    assert simt["replaces"] == row["replaces"]
+    assert len(chip_smoke.KERNELS) == 17
+    assert "flash_bwd_dq_tc" in chip_smoke.SOURCES
     assert chip_smoke.FLASH_TC_TWIN == {"flash_fwd_tc": "flash_fwd",
+                                        "flash_bwd_dq_tc": "flash_bwd_dq",
                                         "flash_bwd_dkv_tc": "flash_bwd_dkv"}
+
+
+def test_profile_symbols_tell_the_dq_routes_apart():
+    """Neither dQ route's symbol is in the other's kernel name, nor in the
+    dK/dV kernels' names, and no other flash symbol is in the dQ kernels'
+    names."""
+    syms = chip_smoke.KERNEL_SYMBOLS
+    tc_name = ("void (anonymous namespace)::flash_bwd_dq_tc_kernel("
+               "__nv_bfloat16 const*, __nv_bfloat16 const*)")
+    simt_name = ("void (anonymous namespace)::flash_bwd_dq_kernel<"
+                 "__nv_bfloat16, 2>(__nv_bfloat16 const*)")
+    dkv_names = ("void (anonymous namespace)::flash_bwd_dkv_tc_kernel("
+                 "__nv_bfloat16 const*)"
+                 "void (anonymous namespace)::flash_bwd_dkv_kernel<"
+                 "__nv_bfloat16, 2>(__nv_bfloat16 const*)")
+    assert syms["flash_bwd_dq_tc"] in tc_name
+    assert syms["flash_bwd_dq_tc"] not in simt_name + dkv_names
+    assert syms["flash_bwd_dq"] in simt_name
+    assert syms["flash_bwd_dq"] not in tc_name + dkv_names
+    for other in ("flash_fwd", "flash_fwd_tc", "flash_bwd_dkv",
+                  "flash_bwd_dkv_tc"):
+        assert syms[other] not in tc_name + simt_name
 
 
 def test_profile_symbols_tell_the_dkv_routes_apart():
@@ -546,10 +606,13 @@ def test_profile_symbols_tell_the_dkv_routes_apart():
 
 def test_t3_and_b2_expect_the_dkv_on_the_tensor_cores():
     """The profiled bf16 training step and B2's use_pallas step count the
-    tensor-core dK/dV, 12 a step, and gate its SIMT twin at 0."""
-    assert "flash_bwd_dkv_tc" in chip_smoke.T3_KERNELS
+    tensor-core dQ and dK/dV, 12 a step each, and gate their SIMT twins
+    at 0."""
+    assert {"flash_bwd_dq_tc", "flash_bwd_dkv_tc"} <= set(
+        chip_smoke.T3_KERNELS)
     assert "flash_bwd_dkv" not in chip_smoke.T3_KERNELS
-    assert chip_smoke.B2_KERNELS == ("flash_fwd_tc", "flash_bwd_dq",
+    assert "flash_bwd_dq" not in chip_smoke.T3_KERNELS
+    assert chip_smoke.B2_KERNELS == ("flash_fwd_tc", "flash_bwd_dq_tc",
                                      "flash_bwd_dkv_tc")
     assert set(chip_smoke.FLASH_TC_TWIN.values()).isdisjoint(
         chip_smoke.B2_KERNELS + chip_smoke.T3_KERNELS)
@@ -570,8 +633,8 @@ def test_bwd_check_shapes_cover_both_dkv_routes_and_the_new_cases():
     m = chip_smoke.make_mask(mask, b, tk, torch.Generator().manual_seed(0),
                              "cpu")
     assert causal and not m[0].any() and m[1:, 0].all()
-    assert chip_smoke.expect_dkv_route(torch.bfloat16, 128) == "simt"
-    routes = {chip_smoke.expect_dkv_route(dt, s[5])
+    assert chip_smoke.expect_bwd_route(torch.bfloat16, 128) == "simt"
+    routes = {chip_smoke.expect_bwd_route(dt, s[5])
               for s in chip_smoke.BWD_CHECK_SHAPES
               for dt in (torch.float32, torch.bfloat16)}
     assert routes == {"tc", "simt"}
@@ -582,13 +645,15 @@ def test_bwd_check_shapes_cover_both_dkv_routes_and_the_new_cases():
 @pytest.mark.parametrize("shape", chip_smoke.BWD_CHECK_SHAPES,
                          ids=[s[0] for s in chip_smoke.BWD_CHECK_SHAPES])
 def test_expected_dkv_route_is_the_ports_rule(shape, dtype):
-    """The dK/dV route T1 asserts, written out, is the one the port's
-    ``dkv_route`` picks for contiguous, aligned inputs: the tensor cores
-    for bf16 at D <= 64, the SIMT kernel for float32 and D = 128."""
-    from paddle_tpu_torch.kernels.attention import dkv_route
+    """The dQ and dK/dV route T1 asserts, written out, is the one the
+    port's ``bwd_route`` picks for contiguous, aligned inputs: the tensor
+    cores for bf16 at D <= 64 (``all_pad_causal``, ``d16``,
+    ``masked_ragged`` and ``causal_masked`` included), the SIMT kernels
+    for float32 and D = 128."""
+    from paddle_tpu_torch.kernels.attention import bwd_route
     d = shape[5]
-    want = chip_smoke.expect_dkv_route(dtype, d)
-    assert dkv_route(dtype, d, True) == want
+    want = chip_smoke.expect_bwd_route(dtype, d)
+    assert bwd_route(dtype, d, True) == want
     assert want == ("tc" if dtype == torch.bfloat16 and d <= 64 else "simt")
 
 

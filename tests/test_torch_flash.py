@@ -6,8 +6,8 @@ the JAX Pallas forward kernel run in interpret mode
 path of the JAX ``flash_attention`` (o). The kernel itself runs only on the
 card (``tests/test_torch_gpu.py``); here the wrapper must take the plain
 version because the tensors lie on the CPU, and count no launch. The
-rules that pick a kernel on the card (``fwd_route``, ``dkv_route``) are
-pinned by tables.
+rules that pick a kernel on the card (``fwd_route``, and ``bwd_route``
+for both backward wrappers) are pinned by tables.
 
 Tolerance: float32, atol = rtol = 1e-5. Both sides compute the same
 float32 function; only the summation order of the two products and the
@@ -170,15 +170,15 @@ def test_cpu_wrapper_counts_no_route_launch():
             port.flash_fwd_cuda.simt_launches) == (tc, simt)
 
 
-# (dtype, d, aligned, route): the dK/dV kernel a CUDA call takes
-DKV_ROUTES = [
+# (dtype, d, aligned, route): the dQ and the dK/dV kernel a CUDA call takes
+BWD_ROUTES = [
     (torch.bfloat16, 64, True, "tc"),       # transformer_long, BERT
     (torch.bfloat16, 16, True, "tc"),       # smallest tc width
     (torch.bfloat16, 32, True, "tc"),       # D padded to 64
     (torch.bfloat16, 48, True, "tc"),
     (torch.bfloat16, 8, True, "simt"),      # D under 16
-    (torch.bfloat16, 80, True, "simt"),     # D past 64: four accumulators
-    (torch.bfloat16, 128, True, "simt"),    # of 128 columns do not fit
+    (torch.bfloat16, 80, True, "simt"),     # D past 64: accumulators of
+    (torch.bfloat16, 128, True, "simt"),    # 128 columns do not fit
     (torch.bfloat16, 100, True, "simt"),    # D not a multiple of 16
     (torch.bfloat16, 40, True, "simt"),
     (torch.bfloat16, 64, False, "simt"),    # a base off 16 bytes
@@ -188,27 +188,45 @@ DKV_ROUTES = [
 ]
 
 
-@pytest.mark.parametrize("dtype,d,aligned,route", DKV_ROUTES,
+@pytest.mark.parametrize("dtype,d,aligned,route", BWD_ROUTES,
                          ids=[f"{str(r[0])[6:]}_d{r[1]}_"
                               f"{'al' if r[2] else 'unal'}"
-                              for r in DKV_ROUTES])
-def test_dkv_route_is_a_fixed_rule(dtype, d, aligned, route):
-    assert port.dkv_route(dtype, d, aligned) == route
+                              for r in BWD_ROUTES])
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_bwd_route_is_a_fixed_rule(monkeypatch, kernel, dtype, d, aligned,
+                                   route):
+    """``bwd_route`` is one rule, and each backward wrapper launches the
+    route it names for its inputs (``do`` off a 16-byte base where
+    ``aligned`` is False) and counts that route. The launch is replaced by
+    a recorder: no kernel runs on the CPU."""
+    assert port.bwd_route(dtype, d, aligned) == route
+    wrapper = getattr(port, f"flash_bwd_{kernel}_cuda")
+    for attr in ("launches", "tc_launches", "simt_launches"):
+        monkeypatch.setattr(wrapper, attr, 0)
+    seen = []
+    monkeypatch.setattr(port, f"flash_bwd_{kernel}_launch",
+                        lambda route, *args: seen.append(route) or
+                        (None, None))
+    q, k, v = (torch.zeros(1, 1, 4, d, dtype=dtype) for _ in range(3))
+    buf = torch.zeros(1 + q.numel(), dtype=dtype)
+    do = (buf[:-1] if aligned else buf[1:]).view(q.shape)
+    assert (do.data_ptr() % 16 == 0) == aligned
+    rows = torch.zeros(1, 1, 4)
+    wrapper(q, k, v, do, rows, rows, False, 0.5)
+    assert seen == [route]
+    assert (wrapper.launches, wrapper.tc_launches, wrapper.simt_launches) \
+        == (1, int(route == "tc"), int(route == "simt"))
 
 
 def test_cpu_backward_counts_no_dkv_route_launch():
     """The autograd route on CPU tensors takes the plain backward: no dK/dV
-    launch on either route, no dQ launch."""
-    before = (port.flash_bwd_dkv_cuda.launches,
-              port.flash_bwd_dkv_cuda.tc_launches,
-              port.flash_bwd_dkv_cuda.simt_launches,
-              port.flash_bwd_dq_cuda.launches)
+    and no dQ launch, on either route."""
+    wrappers = (port.flash_bwd_dkv_cuda, port.flash_bwd_dq_cuda)
+    before = [(w.launches, w.tc_launches, w.simt_launches) for w in wrappers]
     q, k, v, m = _inputs(2, 2, 16, 16, 16, masked=False)
     leaves = [_t(x).bfloat16().requires_grad_() for x in (q, k, v)]
     o = port.flash_attention(*leaves, device="cpu")
     grads = torch.autograd.grad(o.float().sum(), leaves)
     assert all(g.dtype == torch.bfloat16 for g in grads)
-    assert (port.flash_bwd_dkv_cuda.launches,
-            port.flash_bwd_dkv_cuda.tc_launches,
-            port.flash_bwd_dkv_cuda.simt_launches,
-            port.flash_bwd_dq_cuda.launches) == before
+    assert [(w.launches, w.tc_launches, w.simt_launches)
+            for w in wrappers] == before

@@ -1,7 +1,7 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
-forward and dK/dV backward (both routes of each, the SIMT kernel and the
-tensor-core kernel, and the rules that pick one) and the dQ backward, the
-fused optimizer update, the conv
+forward, dQ and dK/dV backward (both routes of each, the SIMT kernel and
+the tensor-core kernel, and the rules that pick one), the fused optimizer
+update, the conv
 kernels (the 3x3 forward's and weight gradient's two routes each and the
 rules that pick one among them), the fused max pool, the embedding
 seqpool and the row
@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paddle_tpu_torch.kernels import attention as port
 
 pytestmark = pytest.mark.gpu
@@ -422,6 +423,127 @@ def test_dkv_tc_launch_raises_and_never_falls_back(cuda):
         port.flash_bwd_dkv_launch("tc", *f, lse, dvec, False, 0.125)
     torch.cuda.synchronize()
     assert (_dkv_routes(), port.flash_bwd_dkv_cuda.launches) == before
+
+
+# -- the tensor-core dQ (csrc/flash_bwd_dq_tc.cu) -----------------------------
+#
+# Tolerance: chip_smoke.py's T1 gates, unchanged: within BWD_TOLERANCE (bf16
+# 2e-2) of the plain version relative to (1 + |plain|), and within
+# BWD_SCALED_TOLERANCE (bf16 1.5e-2) of max|plain|. dS is split into two
+# bf16 terms, so the products lose no more than the bf16 inputs carry, and
+# dq is rounded to bf16 once.
+
+# T1's backward shapes with D <= 64: the training path's, BERT's, ragged
+# Tq and Tk, causal with and without a kv mask, D = 16 and 32, and a batch
+# entry whose keys are all masked
+DQ_TC_SHAPES = [s for s in chip_smoke.BWD_CHECK_SHAPES if s[5] <= 64]
+
+
+def _dq_routes():
+    return (port.flash_bwd_dq_cuda.tc_launches,
+            port.flash_bwd_dq_cuda.simt_launches)
+
+
+@pytest.mark.parametrize("shape", DQ_TC_SHAPES,
+                         ids=[s[0] for s in DQ_TC_SHAPES])
+def test_dq_tc_route_matches_plain_version(cuda, shape):
+    q, k, v, m, do, _, lse, dvec = chip_smoke.bwd_inputs(
+        shape, torch.bfloat16, cuda, 0)
+    causal, scale = shape[6], shape[5] ** -0.5
+    tc, simt = _dq_routes()
+    dq = port.flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, scale, m)
+    torch.cuda.synchronize()
+    assert _dq_routes() == (tc + 1, simt)
+    ref = port.flash_attention_bwd_reference(q, k, v, do, lse, dvec, causal,
+                                             scale, m)[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == ref.shape
+    assert torch.isfinite(dq).all()
+    err = chip_smoke.bwd_errors(dq, ref)
+    assert chip_smoke.bwd_within(err, torch.bfloat16), err
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dq_tc_fully_masked_rows_match_plain_version(cuda, causal):
+    """Batch entry 0's kv mask keeps no key: each of its rows scores -1e30
+    on every key and has lse ~= -1e30, so p = 1 on every key there, in the
+    kernel as in the plain version, and dS = dP - dvec is not damped by a
+    small p. Held to BWD_TOLERANCE, as the other shapes."""
+    b, h, tq, tk, d = 2, 2, 130, 150, 64
+    q, k, v, m = _inputs(cuda, torch.bfloat16, b, h, tq, tk, d, True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(b, h, tq, d, device=cuda, generator=g).to(q.dtype)
+    o, lse = port.flash_fwd_cuda(q, k, v, causal, d ** -0.5, m)
+    dvec = (do.float() * o.float()).sum(-1)
+    assert not m[0].any() and (lse[0] < -1e29).all()
+    tc, simt = _dq_routes()
+    dq = port.flash_bwd_dq_cuda(q, k, v, do, lse, dvec, causal, d ** -0.5, m)
+    torch.cuda.synchronize()
+    assert _dq_routes() == (tc + 1, simt)
+    ref = port.flash_attention_bwd_reference(q, k, v, do, lse, dvec, causal,
+                                             d ** -0.5, m)[0]
+    assert torch.isfinite(dq).all()
+    err = chip_smoke.bwd_errors(dq, ref)["rel_err"]
+    assert err < chip_smoke.BWD_TOLERANCE[torch.bfloat16], err
+
+
+def test_dq_route_counters_follow_the_rule(cuda):
+    """bf16 at D a multiple of 16 in 16..64 on aligned inputs takes the
+    tensor cores; float32, D = 128, D = 100 and a base off 16 bytes the
+    SIMT kernel. Every launch also counts in ``.launches``."""
+    bf = torch.bfloat16
+    cases = [((bf, 64), "tc"), ((bf, 16), "tc"), ((bf, 48), "tc"),
+             ((torch.float32, 64), "simt"), ((bf, 128), "simt"),
+             ((bf, 100), "simt")]
+    for (dtype, d), route in cases:
+        q, k, v, m, do, lse, dvec = _bwd_inputs(cuda, dtype, 2, 2, 40, 70, d,
+                                                False, True)
+        before, n = _dq_routes(), port.flash_bwd_dq_cuda.launches
+        dq = port.flash_bwd_dq_cuda(q, k, v, do, lse, dvec, False, 0.125, m)
+        torch.cuda.synchronize()
+        assert _dq_routes() == ((before[0] + 1, before[1]) if route == "tc"
+                                else (before[0], before[1] + 1)), (dtype, d)
+        assert port.flash_bwd_dq_cuda.launches == n + 1
+        ref = port.flash_attention_bwd_reference(q, k, v, do, lse, dvec,
+                                                 False, 0.125, m)[0]
+        err = chip_smoke.bwd_errors(dq, ref)["rel_err"]
+        assert err < chip_smoke.BWD_TOLERANCE[dtype], (dtype, d, err)
+    # do 2 bytes past an aligned base: the SIMT kernel
+    q, k, v, m, do, lse, dvec = _bwd_inputs(cuda, bf, 1, 1, 32, 32, 64, False,
+                                            False)
+    buf = torch.empty(1 + do.numel(), device=cuda, dtype=bf)
+    off = buf[1:].view(do.shape)
+    off.copy_(do)
+    before = _dq_routes()
+    port.flash_bwd_dq_cuda(q, k, v, off, lse, dvec, False, 0.125)
+    torch.cuda.synchronize()
+    assert _dq_routes() == (before[0], before[1] + 1)
+
+
+def test_dq_tc_launch_raises_and_never_falls_back(cuda):
+    """The tensor-core dQ's C entry refuses what it cannot compute (D =
+    128, a base off 16 bytes) and its wrapper what is not bf16: the launch
+    raises, and no other kernel or plain version runs in its place."""
+    bf = torch.bfloat16
+    before = _dq_routes(), port.flash_bwd_dq_cuda.launches
+    q, k, v, _, do, lse, dvec = _bwd_inputs(cuda, bf, 1, 2, 32, 32, 128,
+                                            False, False)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_tc launch failed"):
+        port.flash_bwd_dq_launch("tc", q, k, v, do, lse, dvec, False, 0.125)
+    q, k, v, _, do, lse, dvec = _bwd_inputs(cuda, bf, 1, 1, 32, 32, 64,
+                                            False, False)
+    buf = torch.empty(1 + q.numel(), device=cuda, dtype=bf)
+    off = buf[1:].view(q.shape)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_tc launch failed"):
+        port.flash_bwd_dq_launch("tc", off, k, v, do, lse, dvec, False,
+                                 0.125)
+    with pytest.raises(ValueError):
+        port.flash_bwd_dq_launch("wgmma", q, k, v, do, lse, dvec, False,
+                                 0.125)
+    f = [t.float() for t in (q, k, v, do)]
+    with pytest.raises(TypeError):
+        port.flash_bwd_dq_launch("tc", *f, lse, dvec, False, 0.125)
+    torch.cuda.synchronize()
+    assert (_dq_routes(), port.flash_bwd_dq_cuda.launches) == before
 
 
 def test_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
