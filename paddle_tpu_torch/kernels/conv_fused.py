@@ -14,7 +14,10 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
 - 1x1 convs without padding are ``tiles.brgemm`` calls over the flattened
   ``[N*OH*OW, C]`` activation (a strided 1x1 slices x first; its dx is
   scattered back into zeros): ``_conv1x1``, ``_conv1x1_dx``,
-  ``_conv1x1_dw``.
+  ``_conv1x1_dw``. ``tiles.gemm_route`` runs the bf16 ones on the
+  tensor-core 3x3 kernels below at a 1x1 geometry (mode "nn" without a
+  fold on the forward's, mode "tn" on the weight gradient's) and the rest
+  on ``csrc/brgemm.cu``.
 - Every other conv runs ``csrc/conv_kxk.cu``: ``convkxk``, ``convkxk_dx``
   and ``convkxk_dw`` replace the Pallas ``_convkxk``, ``_convkxk_dx`` and
   ``_convkxk_dw``. Each wrapper launches its kernel on CUDA tensors (and
@@ -52,7 +55,8 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import epilogues as ep
 from paddle_tpu_torch.kernels import tiles
-from paddle_tpu_torch.kernels.tiles import DTYPE_CODES, check_operand, ptr
+from paddle_tpu_torch.kernels.tiles import (DTYPE_CODES, check_operand,
+                                            geo_arg, ptr, raise_on)
 
 
 def _pair(v):
@@ -135,55 +139,18 @@ def convkxk_dw_reference(g, mask, scale, x, w_shape, w_dtype, stride,
 # -- the KxK kernels -----------------------------------------------------------
 
 
-_DW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
-def _tc_lib():
-    from paddle_tpu_torch.core import native_build
-    lib = native_build.load("conv_kxk_dw_tc")
-    if not getattr(lib, "_argtypes_set", False):
-        lib.conv_kxk_dw_tc.argtypes = _DW_ARGTYPES
-        lib.conv_kxk_dw_tc.restype = ctypes.c_int
-        lib._argtypes_set = True
-    return lib
-
-
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + \
-    [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-
-
-def _fwd_tc_lib():
-    from paddle_tpu_torch.core import native_build
-    lib = native_build.load("conv_kxk_fwd_tc")
-    if not getattr(lib, "_argtypes_set", False):
-        lib.conv_kxk_fwd_tc.argtypes = _FWD_ARGTYPES
-        lib.conv_kxk_fwd_tc.restype = ctypes.c_int
-        lib._argtypes_set = True
-    return lib
-
-
 def _lib():
     from paddle_tpu_torch.core import native_build
     lib = native_build.load("conv_kxk")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv_kxk_fwd.argtypes = _FWD_ARGTYPES
+        lib.conv_kxk_fwd.argtypes = tiles.FWD_ARGTYPES
         lib.conv_kxk_dx.argtypes = [p, p, p, i, p, p, p, i, i, p]
-        lib.conv_kxk_dw.argtypes = _DW_ARGTYPES
+        lib.conv_kxk_dw.argtypes = tiles.DW_ARGTYPES
         for fn in (lib.conv_kxk_fwd, lib.conv_kxk_dx, lib.conv_kxk_dw):
             fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
-
-
-def _geo_arg(geo):
-    return (ctypes.c_int * 15)(*geo)
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
 _KINDS = tuple(DTYPE_CODES)
@@ -195,10 +162,9 @@ def kxk_fwd_route(dtype, c, o, aligned):
     theirs, None when they differ) with C and O multiples of 64 and x at a
     16-byte aligned base (``aligned``); ``"simt"`` (``conv_kxk_fwd`` of
     ``csrc/conv_kxk.cu``) for everything else: float32, whose 1e-5 gate
-    no tensor-core input type meets, and other channel counts."""
-    if dtype == torch.bfloat16 and c % 64 == 0 and o % 64 == 0 and aligned:
-        return "tc"
-    return "simt"
+    no tensor-core input type meets, and other channel counts (the rule
+    is ``tiles.tc_fits``)."""
+    return "tc" if tiles.tc_fits(dtype, c, o, aligned) else "simt"
 
 
 def convkxk_launch(route, x, w, scale=None, bias=None, residual=None,
@@ -225,7 +191,7 @@ def convkxk_launch(route, x, w, scale=None, bias=None, residual=None,
     if route == "tc":
         if x.dtype != torch.bfloat16:
             raise TypeError(f"conv_kxk_fwd_tc takes bfloat16, not {x.dtype}")
-        name, fn = "conv_kxk_fwd_tc", _fwd_tc_lib().conv_kxk_fwd_tc
+        name, fn = "conv_kxk_fwd_tc", tiles.fwd_tc_lib().conv_kxk_fwd_tc
     elif route == "simt":
         name, fn = "conv_kxk_fwd", _lib().conv_kxk_fwd
     else:
@@ -236,10 +202,10 @@ def convkxk_launch(route, x, w, scale=None, bias=None, residual=None,
         err = fn(x.data_ptr(), wk.data_ptr(), out.data_ptr(), ptr(scale),
                  ptr(bias), ptr(residual),
                  DTYPE_CODES[residual.dtype] if residual is not None else 0,
-                 int(relu), _geo_arg(geo), DTYPE_CODES[x.dtype],
+                 int(relu), geo_arg(geo), DTYPE_CODES[x.dtype],
                  DTYPE_CODES[out_dtype],
                  torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     return out
 
 
@@ -296,9 +262,9 @@ def convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dtype, stride, padding,
         err = _lib().conv_kxk_dx(
             g.data_ptr(), ptr(mask), ptr(scale),
             DTYPE_CODES[mask.dtype] if mask is not None else 0,
-            wk.data_ptr(), dx.data_ptr(), _geo_arg(geo), DTYPE_CODES[g.dtype],
+            wk.data_ptr(), dx.data_ptr(), geo_arg(geo), DTYPE_CODES[g.dtype],
             DTYPE_CODES[x_dtype], torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "conv_kxk_dx")
+    raise_on(err, "conv_kxk_dx")
     convkxk_dx.launches += 1
     return dx
 
@@ -310,10 +276,9 @@ def dw_route(dtype, c, o, aligned):
     with C and O multiples of 64 and x, g and the saved output at 16-byte
     aligned bases (``aligned``); ``"simt"`` (``conv_kxk_dw`` of
     ``csrc/conv_kxk.cu``) for everything else: float32, whose 1e-4 gate
-    no tensor-core input type meets, and other channel counts."""
-    if dtype == torch.bfloat16 and c % 64 == 0 and o % 64 == 0 and aligned:
-        return "tc"
-    return "simt"
+    no tensor-core input type meets, and other channel counts (the rule
+    is ``tiles.tc_fits``)."""
+    return "tc" if tiles.tc_fits(dtype, c, o, aligned) else "simt"
 
 
 def _cover_k(k, splits, step):
@@ -348,7 +313,7 @@ def convkxk_dw_launch(route, g, mask, scale, x, w_shape, w_dtype, stride,
             raise TypeError(f"conv_kxk_dw_tc takes bfloat16, not {x.dtype}"
                             + ("" if mask is None else
                                f" with a {mask.dtype} mask"))
-        name, fn = "conv_kxk_dw_tc", _tc_lib().conv_kxk_dw_tc
+        name, fn = "conv_kxk_dw_tc", tiles.dw_tc_lib().conv_kxk_dw_tc
         if splits is None:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             splits, per = tiles.split_k_tc(m, o, k, sms)
@@ -368,10 +333,10 @@ def convkxk_dw_launch(route, g, mask, scale, x, w_shape, w_dtype, stride,
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), g.data_ptr(), ptr(mask), ptr(scale),
                  DTYPE_CODES[mask.dtype] if mask is not None else 0,
-                 out.data_ptr(), ptr(ws), _geo_arg(geo), DTYPE_CODES[x.dtype],
+                 out.data_ptr(), ptr(ws), geo_arg(geo), DTYPE_CODES[x.dtype],
                  DTYPE_CODES[w_dtype], splits, per,
                  torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     return out.permute(3, 2, 0, 1)                   # OIHW
 
 

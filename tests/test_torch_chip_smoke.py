@@ -166,7 +166,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 17
+    assert len(chip_smoke.KERNELS) == 19
 
 
 def test_kernels_line_has_the_tensor_core_weight_gradient_row():
@@ -192,7 +192,9 @@ def test_kernels_line_has_the_tensor_core_forward_row():
     assert simt["replaces"] == row["replaces"]
     assert {"convkxk", "convkxk_tc"} <= set(chip_smoke.RESNET_KERNELS)
     assert chip_smoke.TC_TWIN == {"convkxk_tc": "convkxk",
-                                  "convkxk_dw_tc": "convkxk_dw"}
+                                  "convkxk_dw_tc": "convkxk_dw",
+                                  "brgemm_tc_fwd": "brgemm",
+                                  "brgemm_tc_dw": "brgemm"}
     assert "conv_kxk_fwd_tc" in chip_smoke.SOURCES
 
 
@@ -215,27 +217,31 @@ def test_profile_symbols_tell_the_forward_routes_apart():
     for other in ("convkxk_dx", "convkxk_dw", "convkxk_dw_tc", "brgemm"):
         assert chip_smoke.R_SYMBOLS[other] not in fwd_name
     tc_in_step = chip_smoke.TC_IN_STEP
-    assert tc_in_step == {kern: 16, simt: 0, chip_smoke.DW_TC_KERNEL: 16,
-                          chip_smoke.R_SYMBOLS["convkxk_dw"]: 0}
+    assert tc_in_step == {kern: 16 + 72, simt: 0,
+                          chip_smoke.DW_TC_KERNEL: 16 + 36,
+                          chip_smoke.R_SYMBOLS["convkxk_dw"]: 0,
+                          chip_smoke.R_SYMBOLS["brgemm"]: 0}
 
 
-@pytest.mark.parametrize("dtype,base,tc,simt", [
-    (torch.bfloat16, "R_PER_STEP", 16, 0),
-    (torch.float32, "R_PER_STEP", 0, 16),
-    (torch.bfloat16, "R_POOL_OFF", 16, 0),
-    (torch.bfloat16, "R_EVAL", 16, 0),
-    (torch.float32, "R_EVAL", 0, 16),
+@pytest.mark.parametrize("dtype,base,table,tc,simt", [
+    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 16, 0),
+    (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 16),
+    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 16, 0),
+    (torch.bfloat16, "R_EVAL", "TC_EVAL", 16, 0),
+    (torch.float32, "R_EVAL", "TC_EVAL", 0, 16),
 ], ids=["bf16_step", "f32_step", "bf16_pool_off", "bf16_eval", "f32_eval"])
-def test_fwd_routes_split_the_3x3_forwards_by_dtype(dtype, base, tc, simt):
-    counts = getattr(chip_smoke, base)
-    want = chip_smoke.routes(dtype, counts, ("convkxk",))
+def test_fwd_routes_split_the_3x3_forwards_by_dtype(dtype, base, table, tc,
+                                                    simt):
+    counts, table = getattr(chip_smoke, base), getattr(chip_smoke, table)
+    want = chip_smoke.routes(dtype, counts, ("convkxk",), table)
     assert (want["convkxk_tc"], want["convkxk_simt"]) == (tc, simt)
     assert want["convkxk"] == tc + simt
     assert {k: v for k, v in want.items()
             if k not in ("convkxk_tc", "convkxk_simt")} == counts
-    both = chip_smoke.routes(dtype, counts)
-    assert both == dict(chip_smoke.routes(dtype, counts, ("convkxk_dw",)),
-                        convkxk_tc=tc, convkxk_simt=simt)
+    every = chip_smoke.routes(dtype, counts, tc=table)
+    assert every == dict(chip_smoke.routes(dtype, counts, ("convkxk_dw",
+                                                           "brgemm"), table),
+                         convkxk_tc=tc, convkxk_simt=simt)
 
 
 def test_eval_forward_reaches_the_3x3_convs_in_float32(monkeypatch):
@@ -306,16 +312,16 @@ def test_profile_symbols_tell_the_weight_gradient_routes_apart():
     assert simt not in gemm_name + reduce_name
 
 
-@pytest.mark.parametrize("dtype,base,tc,simt", [
-    (torch.bfloat16, "R_PER_STEP", 16, 0),
-    (torch.float32, "R_PER_STEP", 0, 16),
-    (torch.bfloat16, "R_POOL_OFF", 16, 0),
-    (torch.bfloat16, "R_EVAL", 0, 0),
+@pytest.mark.parametrize("dtype,base,table,tc,simt", [
+    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 16, 0),
+    (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 16),
+    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 16, 0),
+    (torch.bfloat16, "R_EVAL", "TC_EVAL", 0, 0),
 ], ids=["bf16_step", "f32_step", "bf16_pool_off", "eval"])
-def test_dw_routes_split_the_weight_gradients_by_dtype(dtype, base, tc,
-                                                       simt):
-    counts = getattr(chip_smoke, base)
-    want = chip_smoke.routes(dtype, counts, ("convkxk_dw",))
+def test_dw_routes_split_the_weight_gradients_by_dtype(dtype, base, table,
+                                                       tc, simt):
+    counts, table = getattr(chip_smoke, base), getattr(chip_smoke, table)
+    want = chip_smoke.routes(dtype, counts, ("convkxk_dw",), table)
     assert (want["convkxk_dw_tc"], want["convkxk_dw_simt"]) == (tc, simt)
     assert want["convkxk_dw"] == tc + simt
     assert {k: v for k, v in want.items()
@@ -342,6 +348,193 @@ def test_resnet_3x3_shapes_take_the_route_the_script_asserts():
     assert cases["one_split"][5] == 1 and cases["most_splits"][5] == "most"
     for _, (h, c, o, k, s), *_ in cases.values():
         assert dw_route(torch.bfloat16, c, o, True) == "tc"
+
+
+def test_kernels_line_has_the_brgemm_tensor_core_rows():
+    """The 18th and 19th rows: #4's tensor-core routes, built from the
+    accepted tensor-core conv kernels' sources, named <twin>_<route> after
+    the counters of the wrapper that picks them."""
+    from paddle_tpu_torch.kernels import tiles
+    simt = chip_smoke.KERNELS["brgemm"]
+    for row, source in (("brgemm_tc_fwd", "conv_kxk_fwd_tc.cu"),
+                        ("brgemm_tc_dw", "conv_kxk_dw_tc.cu")):
+        assert chip_smoke.KERNELS[row] == {
+            "route": "cuda", "source": "paddle_tpu_torch/csrc/" + source,
+            "replaces": simt["replaces"]}
+        assert row in chip_smoke.RESNET_KERNELS
+        assert chip_smoke.TC_TWIN[row] == "brgemm"
+        assert hasattr(tiles.brgemm_cuda, row[len("brgemm_"):] + "_launches")
+    assert chip_smoke.tc_rows("brgemm") == ["brgemm_tc_fwd", "brgemm_tc_dw"]
+    assert set(chip_smoke.r_counters()) >= {"brgemm_tc_fwd", "brgemm_tc_dw",
+                                            "brgemm_simt"}
+
+
+@pytest.mark.parametrize("dtype,base,table,fwd,dw,simt", [
+    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 72, 36, 0),
+    (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 0, 108),
+    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 72, 36, 0),
+    (torch.bfloat16, "R_EVAL", "TC_EVAL", 36, 0, 0),
+    (torch.float32, "R_EVAL", "TC_EVAL", 0, 0, 36),
+], ids=["bf16_step", "f32_step", "bf16_pool_off", "bf16_eval", "f32_eval"])
+def test_brgemm_routes_split_the_1x1_gemms_by_dtype(dtype, base, table, fwd,
+                                                    dw, simt):
+    counts, table = getattr(chip_smoke, base), getattr(chip_smoke, table)
+    want = chip_smoke.routes(dtype, counts, ("brgemm",), table)
+    assert (want["brgemm_tc_fwd"], want["brgemm_tc_dw"],
+            want["brgemm_simt"]) == (fwd, dw, simt)
+    assert want["brgemm"] == fwd + dw + simt
+
+
+class _FakeLaunches:
+    """The wrappers' launch functions replaced by the plain versions, each
+    launch's route recorded: the wrappers' rules and counters run on CPU
+    tensors as they run on the card."""
+
+    def __init__(self, monkeypatch):
+        from paddle_tpu_torch.kernels import conv_fused as cf
+        from paddle_tpu_torch.kernels import tiles
+        self.routes = []
+        for mod, name, plain in (
+                (tiles, "brgemm_launch", tiles.brgemm_reference),
+                (cf, "convkxk_launch", cf.convkxk_reference),
+                (cf, "convkxk_dw_launch", cf.convkxk_dw_reference)):
+            monkeypatch.setattr(mod, name, self._fake(plain))
+        for f, a in chip_smoke.r_counters().values():
+            monkeypatch.setattr(f, a, 0)
+
+    def _fake(self, plain):
+        def launch(route, *args, facts=None, **kwargs):
+            self.routes.append(route)
+            return plain(*args, **kwargs)
+        return launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_calls_take_the_route_the_script_asserts(monkeypatch, dtype):
+    """R1's ``want_route`` is what the port's wrappers pick (their rules
+    and counters, the launches faked) for every call ``conv_calls`` makes
+    at every distinct ResNet-50 shape, with and without the epilogue and
+    the fold: in bf16 a 1x1 dx that folds stays on SIMT, every other call
+    takes the tensor cores."""
+    fake = _FakeLaunches(monkeypatch)
+    for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
+        x, w, g = chip_smoke.r_inputs(shape, 1, dtype, "cpu", 0)
+        o = shape[2]
+        extra = (torch.rand(o) + 0.5, torch.randn(o),
+                 torch.randn(g.shape).to(dtype),
+                 torch.relu(torch.randn(g.shape)).to(dtype))
+        for ex in (None, extra):
+            for name, (kern, _) in chip_smoke.conv_calls(shape, x, w, g,
+                                                         ex).items():
+                want = chip_smoke.want_route(name, dtype, ex is not None)
+                if want is None:            # the 3x3 dx: no routes
+                    continue
+                kernel = "brgemm" if name.startswith("brgemm") else name
+                before = chip_smoke.r_counts()
+                kern()
+                assert chip_smoke.route_taken(before, kernel) == want, \
+                    (name, shape)
+                assert fake.routes[-1] == want
+    assert "tc_fwd" in fake.routes or dtype == torch.float32
+
+
+@pytest.mark.parametrize("lowp", ["grad+out+blk+stem+bnres", ""],
+                         ids=["lowp", "bf16"])
+def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
+    """R3's gates on the real model at a small size: a bf16 training step
+    through the wrappers (launches faked) counts ``routes(bf16)``, every
+    1x1 forward and dx on the tensor-core forward (no conv of the step
+    folds: BatchNorm runs apart in training) and every 1x1 weight
+    gradient on the tensor-core weight gradient; the pure bf16 model's
+    eval forward counts ``routes(EVAL_DTYPE, R_EVAL)``, all on SIMT."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    from paddle_tpu_torch.ops import nn_ops
+    assert lowp == "" or lowp == bench.DEFAULT_LOWP
+    _FakeLaunches(monkeypatch)
+    monkeypatch.setattr(nn_ops, "CONV_FUSED", True)
+    for mod, plain, cuda in ((tiles, "brgemm_reference", tiles.brgemm_cuda),
+                             (cf, "convkxk_reference", cf.convkxk_cuda),
+                             (cf, "convkxk_dw_reference",
+                              cf.convkxk_dw_cuda)):
+        monkeypatch.setattr(mod, plain, cuda)
+    model, params, opt, state, x, labels = bench.build(2, 64, lowp, "cpu")
+
+    def routed(counts):
+        # the routed kernels' counts (the 3x3 dx and the pool kernels run
+        # their plain versions here and count nothing)
+        return {k: v for k, v in counts.items() if k.startswith(
+            ("brgemm", "convkxk")) and not k.startswith("convkxk_dx")}
+
+    chip_smoke.zero_r_counts()
+    bench.train_step(model, params, opt, state, x, labels)
+    assert routed(chip_smoke.r_counts()) == \
+        routed(chip_smoke.routes(torch.bfloat16))
+    if not lowp:
+        model.eval()
+        chip_smoke.zero_r_counts()
+        with torch.no_grad():
+            model(x)
+        assert routed(chip_smoke.r_counts()) == routed(chip_smoke.routes(
+            chip_smoke.EVAL_DTYPE, chip_smoke.R_EVAL, tc=chip_smoke.TC_EVAL))
+
+
+def test_r4_parts_time_every_routed_row_apart():
+    """Each routed row's calls are launched in exactly one session part of
+    its own route; every tensor-core row has a SIMT part over the same
+    calls; the SIMT parts of a kernel cover all its calls; no kernel
+    symbol repeats within a session."""
+    parts, sessions = chip_smoke.R4_PARTS, chip_smoke.R4_SESSIONS
+    assert sorted(p for s in sessions for p in s) == sorted(parts)
+    for session in sessions:
+        syms = [chip_smoke.R_SYMBOLS[parts[p][0]] for p in session]
+        assert all(a not in b for a in syms for b in syms if a is not b)
+    calls = {"brgemm": {"brgemm_fwd", "brgemm_dx", "brgemm_dw"},
+             "convkxk": {"convkxk"}, "convkxk_dw": {"convkxk_dw"}}
+    for simt, want in calls.items():
+        got = [c for row, route, cs in parts.values() if row == simt
+               for c in cs]
+        assert sorted(got) == sorted(want)
+        assert {route for row, route, _ in parts.values()
+                if row == simt} == {"simt"}
+        for tc in chip_smoke.tc_rows(simt):
+            (route, cs), = [(r, c) for row, r, c in parts.values()
+                            if row == tc]
+            assert tc == f"{simt}_{route}"
+            assert any(row == simt and c == cs
+                       for row, _, c in parts.values())
+    assert set(r for r, _, _ in parts.values()) == \
+        set(chip_smoke.RESNET_KERNELS) - {"convkxk_dx"}
+
+
+# (profile rows [(name, count, ms)], calls, records, the part's ms)
+PART_CASES = [
+    # every record kept: the sum
+    ([("gemm<DenseA>", 4, 8.0), ("splitk_reduce<DenseA>", 4, 0.4)], 4, 8,
+     8.4),
+    # one GEMM record lost: the three kept at their mean, 2.0
+    ([("gemm<DenseA>", 3, 6.0), ("splitk_reduce<DenseA>", 4, 0.4)], 4, 8,
+     8.4),
+    # two reductions lost: the two kept at their mean, 0.1
+    ([("gemm<DenseA>", 4, 8.0), ("splitk_reduce<DenseA>", 2, 0.2)], 4, 8,
+     8.4),
+    # no split: only GEMM records, one lost
+    ([("gemm<DenseA>", 2, 3.0), ("gemm<DenseA, 2>", 1, 1.5)], 4, 4, 6.0),
+    # the reductions ran and kept no record
+    ([("gemm<DenseA>", 4, 8.0)], 4, 8, None),
+]
+
+
+@pytest.mark.parametrize("rows,calls,records,want", PART_CASES)
+def test_r4_part_counts_a_lost_record_at_its_kinds_mean(rows, calls, records,
+                                                       want):
+    """A record CUPTI drops counts at the mean of its kind's kept ones (the
+    GEMM's or the split-K reduction's), so a lost record cannot lower a
+    part's time; a kind that ran and kept none gives no time."""
+    got = chip_smoke.part_device_ms(rows, calls, records)
+    assert got == (None if want is None else pytest.approx(want))
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [
@@ -557,7 +750,7 @@ def test_kernels_line_has_the_tensor_core_dq_row():
                    "source": "paddle_tpu_torch/csrc/flash_bwd_dq_tc.cu",
                    "replaces": "paddle_tpu/kernels/attention.py:345"}
     assert simt["replaces"] == row["replaces"]
-    assert len(chip_smoke.KERNELS) == 17
+    assert len(chip_smoke.KERNELS) == 19
     assert "flash_bwd_dq_tc" in chip_smoke.SOURCES
     assert chip_smoke.FLASH_TC_TWIN == {"flash_fwd_tc": "flash_fwd",
                                         "flash_bwd_dq_tc": "flash_bwd_dq",

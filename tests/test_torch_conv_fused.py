@@ -4,8 +4,11 @@ kernels (interpret mode), on the CPU.
 - ``tiles.brgemm`` (kernel #4): modes "nn" and "tn", each epilogue link
   (scale, bias, residual, relu) and the cotangent fold (relu mask from a
   saved output, then a per-channel scale) on a and on b.
-- ``conv_fused.kxk_fwd_route`` and ``dw_route``: the rules that send a
-  bf16 3x3 forward and weight gradient to the tensor-core kernels.
+- ``conv_fused.kxk_fwd_route``, ``dw_route`` and ``tiles.gemm_route``: the
+  rules (one shared test, ``tiles.tc_fits``) that send a bf16 3x3 forward
+  and weight gradient, and a bf16 1x1 GEMM, to the tensor-core kernels;
+  ``tiles.gemm_geometry``: at its 1x1 geometry the 3x3 kernels' plain
+  versions compute the JAX ``brgemm``.
 - ``conv_fused.conv2d_bn_act`` (#4 for 1x1, #6-#8 for KxK): the output and
   the gradients of x, w, scale, bias and residual over the grid of
   ``tests/test_conv_fused.py`` (ks 1/3, stride 1/2, residual, act), odd
@@ -210,6 +213,196 @@ def test_split_k_tc_covers_k_in_deep_steps_over_two_waves(m, n, k, sms):
     blocks = -(-m // ptiles.TC_TILE_M) * (n // ptiles.tc_tile_n(n)) * splits
     if k >= 2 * sms * ptiles.TC_MIN_SPLIT:      # deep enough for two waves
         assert blocks >= 2 * sms
+
+
+# -- brgemm's routes: the tensor-core conv kernels at a 1x1 geometry ------------
+
+# (id, mode, fold, epilogue, dtype, m_or_k, n, aligned, route)
+GEMM_ROUTE_CASES = [
+    ("nn_bf16_64", "nn", None, False, torch.bfloat16, 64, 64, True,
+     "tc_fwd"),
+    ("nn_bf16_epilogue", "nn", None, True, torch.bfloat16, 2048, 512, True,
+     "tc_fwd"),
+    ("nn_fold_a", "nn", "a", False, torch.bfloat16, 256, 64, True, "simt"),
+    ("nn_fold_b", "nn", "b", False, torch.bfloat16, 256, 64, True, "simt"),
+    ("nn_f32", "nn", None, False, torch.float32, 64, 64, True, "simt"),
+    ("nn_mixed", "nn", None, False, None, 64, 64, True, "simt"),
+    ("nn_k48", "nn", None, False, torch.bfloat16, 48, 64, True, "simt"),
+    ("nn_n70", "nn", None, False, torch.bfloat16, 64, 70, True, "simt"),
+    ("nn_misaligned", "nn", None, False, torch.bfloat16, 64, 64, False,
+     "simt"),
+    ("tn_bf16_64", "tn", None, False, torch.bfloat16, 64, 64, True,
+     "tc_dw"),
+    ("tn_fold_b", "tn", "b", False, torch.bfloat16, 1024, 2048, True,
+     "tc_dw"),
+    ("tn_fold_a", "tn", "a", False, torch.bfloat16, 64, 64, True, "simt"),
+    ("tn_epilogue", "tn", None, True, torch.bfloat16, 64, 64, True, "simt"),
+    ("tn_fold_b_epilogue", "tn", "b", True, torch.bfloat16, 64, 64, True,
+     "simt"),
+    ("tn_f32", "tn", "b", False, torch.float32, 64, 64, True, "simt"),
+    ("tn_mixed_mask", "tn", "b", False, None, 64, 64, True, "simt"),
+    ("tn_m16", "tn", None, False, torch.bfloat16, 16, 64, True, "simt"),
+    ("tn_n192", "tn", None, False, torch.bfloat16, 64, 192, True, "tc_dw"),
+    ("tn_n100", "tn", None, False, torch.bfloat16, 64, 100, True, "simt"),
+    ("tn_misaligned", "tn", "b", False, torch.bfloat16, 64, 64, False,
+     "simt"),
+]
+
+
+@pytest.mark.parametrize("case", GEMM_ROUTE_CASES,
+                         ids=[c[0] for c in GEMM_ROUTE_CASES])
+def test_gemm_route_takes_the_tensor_cores_only_where_they_fit(case):
+    _, mode, fold, epilogue, dtype, m_or_k, n, aligned, route = case
+    assert ptiles.gemm_route(mode, fold, epilogue, dtype, m_or_k, n,
+                             aligned) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, None],
+                         ids=["bf16", "f32", "mixed"])
+def test_the_three_tensor_core_routes_share_one_rule(dtype):
+    """``kxk_fwd_route``, ``dw_route`` and ``gemm_route`` (without a fold
+    or an epilogue, which only it sees) all take ``tiles.tc_fits``."""
+    for c in (16, 48, 64, 70, 128, 192, 512):
+        for o in (64, 100, 128, 2048):
+            for aligned in (True, False):
+                fits = ptiles.tc_fits(dtype, c, o, aligned)
+                want = "tc" if fits else "simt"
+                assert pcf.kxk_fwd_route(dtype, c, o, aligned) == want
+                assert pcf.dw_route(dtype, c, o, aligned) == want
+                for mode, tc in (("nn", "tc_fwd"), ("tn", "tc_dw")):
+                    assert ptiles.gemm_route(mode, None, False, dtype, c, o,
+                                             aligned) == (
+                        tc if fits else "simt")
+
+
+def _gemm_as_conv(mode, a, b, out_dtype=None, scale=None, bias=None,
+                  residual=None, relu=False, fold_mask=None,
+                  fold_scale=None):
+    """What the tensor-core routes compute: the conv kernels' plain
+    versions at ``tiles.gemm_geometry``'s 1x1 geometry (checked against
+    ``conv_fused.geometry``), reshaped back to the GEMM's [M, N]."""
+    one = ((1, 1), ((0, 0), (0, 0)), (1, 1))
+    if mode == "nn":
+        (m, k), n = a.shape, b.shape[1]
+        x, w = a.reshape(m, 1, 1, k), b.t().reshape(n, k, 1, 1)
+        assert pcf.geometry(x.shape, w.shape, *one) == \
+            ptiles.gemm_geometry("nn", m, n, k)
+        res = None if residual is None else residual.reshape(m, 1, 1, n)
+        out = pcf.convkxk_reference(x, w, scale, bias, res, relu, *one,
+                                    out_dtype=out_dtype or a.dtype)
+        return out.reshape(m, n)
+    (k, m), n = a.shape, b.shape[1]
+    x, g = a.reshape(k, 1, 1, m), b.reshape(k, 1, 1, n)
+    assert pcf.geometry(x.shape, (n, m, 1, 1), *one) == \
+        ptiles.gemm_geometry("tn", m, n, k)
+    mask = None if fold_mask is None else fold_mask.reshape(k, 1, 1, n)
+    dw = pcf.convkxk_dw_reference(g, mask, fold_scale, x, (n, m, 1, 1),
+                                  out_dtype or a.dtype, *one)
+    return dw.reshape(n, m).t()
+
+
+def test_gemm_geometry_of_both_modes():
+    assert ptiles.gemm_geometry("nn", 40, 128, 64) == \
+        (40, 1, 1, 64, 128, 1, 1, 1, 1, 1, 1, 0, 0, 1, 1)
+    assert ptiles.gemm_geometry("tn", 64, 128, 75) == \
+        (75, 1, 1, 64, 128, 1, 1, 1, 1, 1, 1, 0, 0, 1, 1)
+    with pytest.raises(ValueError):
+        ptiles.gemm_geometry("nt", 1, 1, 1)
+
+
+# (id, mode, epilogue links, residual dtype, out dtype, fold links): the
+# calls the tensor-core routes take, at widths they take (K, M, N
+# multiples of 64; M and K of the other mode ragged)
+TC_GEMM_CASES = [
+    ("nn_plain", "nn", (), None, None, ()),
+    ("nn_chain_res_f32", "nn", ("scale", "bias", "residual", "relu"), "f32",
+     None, ()),
+    ("nn_chain_res_bf16", "nn", ("scale", "bias", "residual", "relu"),
+     "bf16", None, ()),
+    ("nn_chain_out_f32", "nn", ("scale", "bias", "relu"), None, "f32", ()),
+    ("tn_plain", "tn", (), None, None, ()),
+    ("tn_mask", "tn", (), None, None, ("mask",)),
+    ("tn_scale", "tn", (), None, None, ("scale",)),
+    ("tn_mask_scale", "tn", (), None, None, ("mask", "scale")),
+]
+TC_M, TC_K, TC_N = 40, 64, 128
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", TC_GEMM_CASES,
+                         ids=[c[0] for c in TC_GEMM_CASES])
+def test_gemm_geometry_conv_matches_the_jax_brgemm(case, dt):
+    """At ``gemm_geometry``, the 3x3 kernels' plain versions compute the
+    JAX ``brgemm`` (interpret mode) and the port's ``brgemm_reference``:
+    what ``tc_fwd`` and ``tc_dw`` run on the card is #4's function. Every
+    width is a multiple of 64 but the "nn" M and the "tn" K (40)."""
+    _, mode, links, res_dt, out_dt, fold_links = case
+    rs = np.random.RandomState(7)
+    m, k, n = (TC_M, TC_K, TC_N) if mode == "nn" else (TC_K, TC_M, TC_N)
+    a = rs.randn(*((m, k) if mode == "nn" else (k, m))).astype(np.float32)
+    b = rs.randn(k, n).astype(np.float32)
+    ja, ta = _pair(a, dt)
+    jb, tb = _pair(b, dt)
+    out_dtype = None if out_dt is None else TORCH_DT[out_dt]
+    chain, j_ops, kw = jep.Epilogue(), [], {}
+    for link in links:
+        chain = chain + getattr(jep, link)()
+        if link == "relu":
+            kw["relu"] = True
+        elif link == "residual":
+            jr, tr = _pair(rs.randn(m, n).astype(np.float32), res_dt)
+            j_ops.append(jr)
+            kw["residual"] = tr
+        else:
+            v = (rs.rand(n) + 0.5 if link == "scale" else
+                 rs.randn(n)).astype(np.float32)
+            j_ops.append(jnp.asarray(v))
+            kw[link] = torch.from_numpy(v)
+    jfold, j_fold_ops = None, []
+    if fold_links:
+        jfold = jep.Epilogue()
+        if "scale" in fold_links:
+            jfold = jfold + jep.scale()
+        if "mask" in fold_links:
+            jfold = jfold + jep.relu()
+            mask = np.where(rs.rand(k, n) < 0.3, 0.0,
+                            rs.randn(k, n)).astype(np.float32)
+            jm, kw["fold_mask"] = _pair(mask, dt)
+            j_fold_ops.append(jm)
+        if "scale" in fold_links:
+            fs = (rs.rand(n) + 0.5).astype(np.float32)
+            j_fold_ops.append(jnp.asarray(fs))
+            kw["fold_scale"] = torch.from_numpy(fs)
+    ref = jtiles.brgemm(ja, jb, mode=mode, out_dtype=None if out_dt is None
+                        else JAX_DT[out_dt], epilogue=chain or None,
+                        epilogue_operands=j_ops, fold=jfold, fold_on="b",
+                        fold_operands=j_fold_ops, interpret=True)
+    got = _gemm_as_conv(mode, ta, tb, out_dtype, **kw)
+    plain = ptiles.brgemm_reference(ta, tb, mode, out_dtype, fold_on="b",
+                                    **kw)
+    want_dtype = out_dtype or TORCH_DT[dt]
+    assert got.dtype == plain.dtype == want_dtype
+    assert tuple(got.shape) == (m, n)
+    tol = 1e-5 if dt == "f32" and out_dt != "bf16" else 2e-2
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=tol, atol=tol)
+
+
+def test_brgemm_on_cpu_counts_no_route_launch():
+    """CPU tensors at widths and types that take the tensor cores on the
+    card run the plain version: no launch and no route is counted."""
+    def counts():
+        return (ptiles.brgemm.launches, ptiles.brgemm_cuda.tc_fwd_launches,
+                ptiles.brgemm_cuda.tc_dw_launches,
+                ptiles.brgemm_cuda.simt_launches)
+
+    a = torch.randn(64, 128).bfloat16()
+    b = torch.randn(128, 64).bfloat16()
+    before = counts()
+    ptiles.brgemm(a, b, mode="nn")
+    ptiles.brgemm(a.t().contiguous(), a.t().contiguous(), mode="tn",
+                  fold_on="b", fold_mask=torch.ones(128, 64).bfloat16())
+    assert counts() == before
 
 
 # -- conv2d_bn_act (#4, #6, #7, #8) ---------------------------------------------

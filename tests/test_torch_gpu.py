@@ -2,8 +2,8 @@
 forward, dQ and dK/dV backward (both routes of each, the SIMT kernel and
 the tensor-core kernel, and the rules that pick one), the fused optimizer
 update, the conv
-kernels (the 3x3 forward's and weight gradient's two routes each and the
-rules that pick one among them), the fused max pool, the embedding
+kernels (the 3x3 forward's and weight gradient's two routes each, the 1x1
+GEMM's three, and the rules that pick one among them), the fused max pool, the embedding
 seqpool and the row
 LayerNorm against their plain versions, and the kernel launches of a
 tiny BERT step.
@@ -928,6 +928,192 @@ def test_fwd_tc_launch_raises_and_never_falls_back(cuda):
     with pytest.raises(ValueError):
         cf.convkxk_launch("wgmma", *c16)
     assert (_fwd_routes(cf), cf.convkxk.launches) == before
+
+
+# -- brgemm's tensor-core routes (the tensor-core conv kernels at 1x1) ---------
+
+# ResNet-50's distinct 1x1 shapes (h, c, o, 1, stride): C = O = 64 (the
+# 64-wide N tile), C = 2048, O = 2048, the strided ones (a sliced x)
+BRGEMM_TC_SHAPES = sorted({s for s in chip_smoke.resnet50_conv_shapes()
+                           if s[3] == 1})
+
+
+def _brgemm_routes(tiles):
+    c = tiles.brgemm_cuda
+    return {"tc_fwd": c.tc_fwd_launches, "tc_dw": c.tc_dw_launches,
+            "simt": c.simt_launches}
+
+
+def _one_more(before, after, route):
+    return after == dict(before, **{route: before[route] + 1})
+
+
+@pytest.mark.parametrize("extra", [False, True], ids=["path", "epi_fold"])
+@pytest.mark.parametrize("shape", BRGEMM_TC_SHAPES, ids=str)
+def test_brgemm_tc_routes_match_plain_version(cuda, shape, extra):
+    """bf16 at each 1x1 shape of ResNet-50 (batch 3), at the gate of
+    chip_smoke's R1 (2e-2 of max |plain|): the forward (with the epilogue:
+    scale, bias, a bf16 residual, relu) and the dx without a fold on
+    ``tc_fwd``, the weight gradient (with the fold: mask and scale) on
+    ``tc_dw``, the dx that folds on ``simt``; each counted once, in
+    ``brgemm.launches`` too."""
+    from paddle_tpu_torch.kernels import tiles
+    for name, (kern, plain) in _conv_case(cuda, shape, torch.bfloat16,
+                                          extra).items():
+        want = chip_smoke.want_route(name, torch.bfloat16, extra)
+        before, n = _brgemm_routes(tiles), tiles.brgemm.launches
+        got = kern()
+        torch.cuda.synchronize()
+        assert _one_more(before, _brgemm_routes(tiles), want), name
+        assert tiles.brgemm.launches == n + 1
+        ref = plain()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got, ref) < 2e-2, (name, _rel_err(got, ref))
+
+
+def _gemm_operands(dev, m, k, n, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    b = (torch.randn(k, n, device=dev, generator=gen) * k ** -0.5).bfloat16()
+    return a, b, gen
+
+
+def test_brgemm_tc_fwd_takes_a_float32_residual_and_output(cuda):
+    """The forward's chain with a float32 residual, into a float32 and a
+    bf16 output, at a ragged M (3 x 7 x 7 = 147) and O = 192 (three
+    64-column tiles)."""
+    from paddle_tpu_torch.kernels import tiles
+    a, b, gen = _gemm_operands(cuda, 147, 256, 192)
+    kw = dict(scale=torch.rand(192, device=cuda, generator=gen) + 0.5,
+              bias=torch.randn(192, device=cuda, generator=gen),
+              residual=torch.randn(147, 192, device=cuda, generator=gen),
+              relu=True)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = _brgemm_routes(tiles)
+        got = tiles.brgemm_cuda(a, b, "nn", out_dtype, **kw)
+        torch.cuda.synchronize()
+        assert _one_more(before, _brgemm_routes(tiles), "tc_fwd")
+        ref = tiles.brgemm_reference(a, b, "nn", out_dtype, **kw)
+        assert got.dtype == ref.dtype == out_dtype
+        assert _rel_err(got, ref) < 2e-2, out_dtype
+
+
+def test_brgemm_route_counters_follow_the_rule(cuda):
+    """float32, a dx that folds (a mask or a scale on a), a weight
+    gradient with an epilogue or a float32 mask, a width that is no
+    multiple of 64 and a base off 16 bytes take ``simt``; each still
+    computes the plain version's result."""
+    from paddle_tpu_torch.kernels import tiles
+    a, b, gen = _gemm_operands(cuda, 200, 128, 64)
+    g = torch.randn(200, 64, device=cuda, generator=gen).bfloat16()
+    mask_g = torch.relu(torch.randn(200, 64, device=cuda,
+                                    generator=gen)).bfloat16()
+    scale = torch.rand(64, device=cuda, generator=gen) + 0.5
+    buf = torch.empty(a.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    off = buf[1:].view(a.shape)               # 2 bytes past an aligned base
+    off.copy_(a)
+    wt = b.t().contiguous()                   # [64, 128]
+    cases = [
+        ("f32", (a.float(), b.float()), {}),
+        ("dx_mask", (g, wt), dict(fold_on="a", fold_mask=mask_g)),
+        ("dx_scale", (g, wt), dict(fold_on="a", fold_scale=scale)),
+        ("nn_k48", (a[:, :48].contiguous(), b[:48].contiguous()), {}),
+        ("nn_misaligned", (off, b), {}),
+        ("tn_bias", (a, g), dict(mode="tn", bias=scale)),
+        ("tn_f32_mask", (a, g), dict(mode="tn", fold_on="b",
+                                     fold_mask=mask_g.float())),
+        ("tn_fold_a", (a, g), dict(mode="tn", fold_on="a",
+                                   fold_scale=torch.ones(
+                                       128, device=cuda))),
+        ("tn_n48", (a, g[:, :48].contiguous()), dict(mode="tn")),
+        ("tn_misaligned", (off, g), dict(mode="tn")),
+    ]
+    for case, (x, y), kw in cases:
+        before = _brgemm_routes(tiles)
+        got = tiles.brgemm_cuda(x, y, **kw)
+        torch.cuda.synchronize()
+        assert _one_more(before, _brgemm_routes(tiles), "simt"), case
+        ref = tiles.brgemm_reference(x, y, **kw)
+        tol = 1e-5 if x.dtype == torch.float32 else 2e-2
+        assert _rel_err(got, ref) < tol, case
+    # and their counterparts that fit take the tensor cores
+    for case, (x, y), kw, route in (
+            ("nn", (a, b), {}, "tc_fwd"),
+            ("dx_no_fold", (g, wt), dict(fold_on="a"), "tc_fwd"),
+            ("tn_fold_b", (a, g), dict(mode="tn", fold_on="b",
+                                       fold_mask=mask_g,
+                                       fold_scale=scale), "tc_dw")):
+        before = _brgemm_routes(tiles)
+        got = tiles.brgemm_cuda(x, y, **kw)
+        torch.cuda.synchronize()
+        assert _one_more(before, _brgemm_routes(tiles), route), case
+        assert _rel_err(got, tiles.brgemm_reference(x, y, **kw)) < 2e-2
+
+
+def test_brgemm_tc_launch_raises_and_never_falls_back(cuda):
+    """A tensor-core route refuses what its kernel does not compute (another
+    mode, a fold on a, an epilogue on the weight gradient, float32, a
+    float32 mask) in Python and, through its C entry, a width that is no
+    multiple of 64: the launch raises, and nothing runs in its place."""
+    from paddle_tpu_torch.kernels import tiles
+    a, b, gen = _gemm_operands(cuda, 128, 64, 64)
+    g = torch.randn(128, 64, device=cuda, generator=gen).bfloat16()
+    mask = torch.relu(g.float())
+    before = _brgemm_routes(tiles), tiles.brgemm.launches
+    launch = tiles.brgemm_launch
+    with pytest.raises(TypeError):
+        launch("tc_fwd", a.float(), b.float())
+    with pytest.raises(TypeError):
+        launch("tc_dw", a, g, mode="tn", fold_on="b", fold_mask=mask)
+    with pytest.raises(ValueError):
+        launch("tc_fwd", a, b, fold_on="a", fold_mask=a)
+    with pytest.raises(ValueError):
+        launch("tc_fwd", a, g, mode="tn")
+    with pytest.raises(ValueError):
+        launch("tc_dw", a, b)
+    with pytest.raises(ValueError):
+        launch("tc_dw", a, g, mode="tn", relu=True)
+    with pytest.raises(RuntimeError, match="conv_kxk_fwd_tc launch failed"):
+        launch("tc_fwd", a[:, :48].contiguous(), b[:48].contiguous())
+    with pytest.raises(RuntimeError, match="conv_kxk_dw_tc launch failed"):
+        launch("tc_dw", a[:, :48].contiguous(), g, mode="tn")
+    with pytest.raises(ValueError):
+        launch("wgmma", a, b)
+    assert (_brgemm_routes(tiles), tiles.brgemm.launches) == before
+
+
+@pytest.mark.parametrize("act", [None, "relu"], ids=["train", "relu_scale"])
+def test_conv2d_bn_act_1x1_bf16_takes_the_tensor_core_routes(cuda, act):
+    """The autograd route of a bf16 1x1 conv: as a training step calls it
+    (no epilogue) the forward and dx take ``tc_fwd`` and the dw ``tc_dw``;
+    with a relu and a scale the dx folds and takes ``simt`` (the dscale
+    recompute is one more forward). Output and gradients within 2e-2 of
+    max |CPU plain route|."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 9, 9, 64, generator=gen).bfloat16()
+    w = (torch.randn(128, 64, 1, 1, generator=gen) * 0.125).bfloat16()
+    scale = torch.rand(128, generator=gen) + 0.5 if act else None
+    cot = torch.randn(2, 9, 9, 128, generator=gen).bfloat16()
+    outs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in (x, w)]
+        s = None if scale is None else scale.to(dev).requires_grad_()
+        before = _brgemm_routes(tiles)
+        out = cf.conv2d_bn_act(*leaves, scale=s, act=act)
+        grads = torch.autograd.grad(out, leaves + ([s] if act else []),
+                                    cot.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            after = _brgemm_routes(tiles)
+            got = {r: after[r] - before[r] for r in after}
+            assert got == ({"tc_fwd": 2, "tc_dw": 1, "simt": 1} if act else
+                           {"tc_fwd": 2, "tc_dw": 1, "simt": 0})
+        outs[str(dev)] = [out] + list(grads)
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        assert _rel_err(b.cpu(), a) < 2e-2
 
 
 def test_max_pool_ties_on_nhwc_cuda_tensors_take_the_first_max(cuda):
