@@ -18,21 +18,29 @@ the 3x3 ones, forward, dx and dw, where ``conv_fused.kxk_fwd_route`` sends
 every bf16 3x3 forward of ResNet-50 to ``csrc/conv_kxk_fwd_tc.cu`` (wgmma)
 and ``conv_fused.dw_route`` every bf16 weight gradient to
 ``csrc/conv_kxk_dw_tc.cu`` (wgmma), the float32 ones to the SIMT
-``conv_kxk_fwd`` and ``conv_kxk_dw``; ``tiles.gemm_route`` sends every
-bf16 1x1 forward and dx (mode "nn", no fold: the step's convs have no relu
-or scale in their epilogue) to the same tensor-core forward and every bf16
-1x1 weight gradient (mode "tn") to the same tensor-core weight gradient,
-each at a 1x1 geometry, the float32 ones to ``csrc/brgemm.cu``; and with
+``conv_kxk_fwd`` and ``conv_kxk_dw``; ``conv_fused.dx_route`` sends every
+bf16 stride-1 3x3 dx without a fold to the tensor-core forward at the
+geometry of the forward conv it is (flipped taps, C and O swapped), the
+stride-2 and float32 ones to the SIMT ``conv_kxk_dx``;
+``tiles.gemm_route`` sends every bf16 1x1 forward and dx (mode "nn", no
+fold: the step's convs have no relu or scale in their epilogue) to the
+same tensor-core forward and every bf16 1x1 weight gradient (mode "tn")
+to the same tensor-core weight gradient, each at a 1x1 geometry, the
+float32 ones to ``csrc/brgemm.cu``; and with
 ``PADDLE_TPU_POOL_FUSED`` set, the stem's max pool in
 ``csrc/pool_fused.cu``, forward and backward):
 
 R1. kernels  each conv kernel against its plain version at every distinct
              conv shape of ResNet-50 at 224 (batch 8), forward, dx and dw,
              in float32 and bfloat16, plus the epilogue (scale, bias,
-             residual, relu) and the cotangent fold at a strided 1x1 and a
-             strided 3x3, each call on the route the rules name
-             (``want_route``: tensor cores in bf16, SIMT in float32 and for
-             a 1x1 dx that folds; the worst error logged by route); the
+             residual, relu) and the cotangent fold at a strided 1x1, a
+             strided 3x3 and a stride-1 3x3, each call on the route the
+             rules name
+             (``want_route``: tensor cores in bf16, SIMT in float32, for a
+             dx that folds and for a 3x3 dx at stride 2; the worst error
+             logged by route); the tensor-core dx also dilated, with an
+             uneven padding whose low pad of g is negative, at an M that
+             is no multiple of its tile and with a float32 output; the
              tensor-core forward also
              dilated, at an M that is no multiple of its tile, at O = 192,
              with a float32 output and with the eval chain (scale, bias,
@@ -47,8 +55,8 @@ R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth),
              function, its batch sums in another order); the first loss,
              every first-step gradient leaf, the BN running stats and the
              last loss gated (a fixed tolerance, or twice the floor); 108
-             brgemm (all on SIMT), 16 of each 3x3 kernel (every forward and
-             weight gradient on the SIMT kernels) and one of each pool
+             brgemm (all on SIMT), 16 of each 3x3 kernel (all on the SIMT
+             kernels) and one of each pool
              kernel launched a step;
 P1. pool     the pool kernels against their plain versions at the stem's
              shape (bf16 at batch 256, float32 at batch 8), at odd planes,
@@ -116,13 +124,15 @@ Back on the ResNet-50 path:
 
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
              in pure bf16, the pool knob on: the main path's counted step
-             (launches as in R2, every 3x3 forward and weight gradient on
-             the tensor cores, the 1x1 GEMMs 72 on the tensor-core forward
+             (launches as in R2, every 3x3 forward and weight gradient and
+             the 13 stride-1 3x3 dx on the tensor cores, the 3 stride-2 dx
+             on SIMT, the 1x1 GEMMs 72 on the tensor-core forward
              and 36 on the tensor-core weight gradient), timed steps
              (imgs/s over all of them), one profiled step each (device
              busy time, idle share over its own wall time; its own count
-             of 88 tensor-core forwards and 52 tensor-core weight
-             gradients, and no SIMT conv kernel but the dx, gated); in the
+             of 101 tensor-core forwards, 52 tensor-core weight
+             gradients and 3 SIMT dx, and no other SIMT conv kernel,
+             gated); in the
              lowp default a counted step with the pool knob off (no pool
              launch) and timed steps with the knob off and on in turns; in
              pure bf16 an eval forward through the conv+BN+relu epilogue
@@ -132,13 +142,15 @@ R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
 R4. numbers  each conv and pool kernel row's device time a launch beside
              the mean over the step's launches of its bound, its plain
              version and a library call (``torch.matmul``, cuDNN,
-             ``F.max_pool2d``) that the port never calls: the 3x3 dx and
-             the pool kernels from their own launches in the profiled lowp
-             step; each routed conv kernel's rows (the tensor-core ones
-             share their kernels between 1x1 and 3x3 convs) from the
+             ``F.max_pool2d``) that the port never calls: the pool
+             kernels from their own launches in the profiled lowp step;
+             each conv kernel's rows (the tensor-core ones share their
+             kernels between 1x1 and 3x3 convs and the 3x3 dx) from the
              step's calls at batch 256 in bf16 launched on each route in
-             two profiled sessions, each tensor-core row beside its SIMT
-             twin on the same calls (``simt_ms``).
+             three profiled sessions, each tensor-core row beside its SIMT
+             twin on the same calls (``simt_ms``), the SIMT dx at stride
+             1 and at stride 2 apart (its row's numbers are means over
+             the 3 stride-2 calls, the ones the step launches on it).
 
 Then the serving path:
 
@@ -316,6 +328,13 @@ KERNELS = {
     "convkxk_dx": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/conv_kxk.cu",
+        "replaces": "paddle_tpu/kernels/conv_fused.py:425",
+    },
+    # the same TPU kernel's tensor-core route: the tensor-core conv forward
+    # at the geometry of the forward conv a stride-1 dx without a fold is
+    "convkxk_dx_tc": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
         "replaces": "paddle_tpu/kernels/conv_fused.py:425",
     },
     "convkxk_dw": {
@@ -1826,13 +1845,15 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
 # -- ResNet-50 (R1-R4) ----------------------------------------------------------
 
 RESNET_KERNELS = ("brgemm", "brgemm_tc_fwd", "brgemm_tc_dw", "convkxk",
-                  "convkxk_tc", "convkxk_dx", "convkxk_dw", "convkxk_dw_tc")
+                  "convkxk_tc", "convkxk_dx", "convkxk_dx_tc", "convkxk_dw",
+                  "convkxk_dw_tc")
 # each tensor-core row's SIMT twin: the same function, by another route. A
 # row is named <twin>_<route>, the route the wrapper's rule names
-# (``tiles.gemm_route``, ``conv_fused.kxk_fwd_route``, ``dw_route``) and
-# counts in ``<wrapper>.<route>_launches``
-TC_TWIN = {"convkxk_tc": "convkxk", "convkxk_dw_tc": "convkxk_dw",
-           "brgemm_tc_fwd": "brgemm", "brgemm_tc_dw": "brgemm"}
+# (``tiles.gemm_route``, ``conv_fused.kxk_fwd_route``, ``dx_route``,
+# ``dw_route``) and counts in ``<wrapper>.<route>_launches``
+TC_TWIN = {"convkxk_tc": "convkxk", "convkxk_dx_tc": "convkxk_dx",
+           "convkxk_dw_tc": "convkxk_dw", "brgemm_tc_fwd": "brgemm",
+           "brgemm_tc_dw": "brgemm"}
 # launches of a bf16 training step of ResNet-50 with the conv and pool
 # knobs on (36 1x1 convs: forward, dx and dw each; 16 3x3 convs; the stem's
 # max pool) and of an eval forward
@@ -1841,14 +1862,15 @@ R_PER_STEP = {"brgemm": 108, "convkxk": 16, "convkxk_dx": 16,
 R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0,
           "pool_fwd": 1, "pool_bwd": 0}
 # of those, the launches each tensor-core row takes when the convs see
-# bf16: every 3x3 forward and weight gradient; the 1x1 forwards and dx are
-# mode "nn" without a fold (no conv of the training step has a relu or a
-# scale in its epilogue: BatchNorm runs apart from it), their weight
-# gradients mode "tn"
-TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dw_tc": 16, "brgemm_tc_fwd": 72,
-               "brgemm_tc_dw": 36}
-TC_EVAL = {"convkxk_tc": 16, "convkxk_dw_tc": 0, "brgemm_tc_fwd": 36,
-           "brgemm_tc_dw": 0}
+# bf16: every 3x3 forward and weight gradient, and the 13 3x3 dx at stride
+# 1 (the first bottleneck of stages 2-4 has a stride-2 3x3); the 1x1
+# forwards and dx are mode "nn" without a fold (no conv of the training
+# step has a relu or a scale in its epilogue: BatchNorm runs apart from
+# it, so no dx folds), their weight gradients mode "tn"
+TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dx_tc": 13, "convkxk_dw_tc": 16,
+               "brgemm_tc_fwd": 72, "brgemm_tc_dw": 36}
+TC_EVAL = {"convkxk_tc": 16, "convkxk_dx_tc": 0, "convkxk_dw_tc": 0,
+           "brgemm_tc_fwd": 36, "brgemm_tc_dw": 0}
 # the step with the pool knob off
 R_POOL_OFF = dict(R_PER_STEP, pool_fwd=0, pool_bwd=0)
 # the dtype the eval forward's convs see in the pure bf16 model: the stem's
@@ -1862,10 +1884,11 @@ R2_STEPS, R3_TIMED = 2, 3
 # template arguments (the split-K reductions carry it too); the tensor-core
 # forward's kernel holds "conv_kxk_fwd_tc", the tensor-core weight
 # gradient's kernel and its reduction's tag "conv_kxk_dw_tc", at a 3x3
-# geometry and at brgemm's 1x1 one alike
+# geometry, at a 3x3 dx's and at brgemm's 1x1 one alike
 R_SYMBOLS = {"brgemm": "DenseA", "brgemm_tc_fwd": "conv_kxk_fwd_tc",
              "brgemm_tc_dw": "conv_kxk_dw_tc", "convkxk": "XRows",
              "convkxk_tc": "conv_kxk_fwd_tc", "convkxk_dx": "DyRows",
+             "convkxk_dx_tc": "conv_kxk_fwd_tc",
              "convkxk_dw": "XCols", "convkxk_dw_tc": "conv_kxk_dw_tc",
              "pool_fwd": "pool_fwd_kernel", "pool_bwd": "pool_bwd_kernel"}
 # the tensor-core forward's kernel (one a launch)
@@ -1873,16 +1896,20 @@ FWD_TC_KERNEL = "conv_kxk_fwd_tc_kernel"
 # the tensor-core weight gradient's GEMM alone (one a launch)
 DW_TC_KERNEL = "conv_kxk_dw_tc_kernel"
 # each tensor-core row's kernel, one a launch
-TC_KERNEL = {"convkxk_tc": FWD_TC_KERNEL, "brgemm_tc_fwd": FWD_TC_KERNEL,
-             "convkxk_dw_tc": DW_TC_KERNEL, "brgemm_tc_dw": DW_TC_KERNEL}
-# a profiled bf16 step's count of each: the 16 3x3 forwards and 72 1x1
-# "nn" GEMMs on the tensor-core forward, the 16 3x3 and 36 1x1 weight
-# gradients on the tensor-core weight gradient, none on a SIMT twin
-TC_IN_STEP = {FWD_TC_KERNEL: TC_PER_STEP["convkxk_tc"]
-              + TC_PER_STEP["brgemm_tc_fwd"],
-              DW_TC_KERNEL: TC_PER_STEP["convkxk_dw_tc"]
-              + TC_PER_STEP["brgemm_tc_dw"],
-              **{R_SYMBOLS[simt]: 0 for simt in TC_TWIN.values()}}
+TC_KERNEL = {"convkxk_tc": FWD_TC_KERNEL, "convkxk_dx_tc": FWD_TC_KERNEL,
+             "brgemm_tc_fwd": FWD_TC_KERNEL, "convkxk_dw_tc": DW_TC_KERNEL,
+             "brgemm_tc_dw": DW_TC_KERNEL}
+# a profiled bf16 step's count of each: the 16 3x3 forwards, 13 stride-1
+# 3x3 dx and 72 1x1 "nn" GEMMs on the tensor-core forward, the 16 3x3 and
+# 36 1x1 weight gradients on the tensor-core weight gradient; each SIMT
+# twin the launches its tensor-core rows leave it (the 3 stride-2 3x3 dx)
+TC_IN_STEP = {**{sym: sum(n for r, n in TC_PER_STEP.items()
+                          if TC_KERNEL[r] == sym)
+                 for sym in (FWD_TC_KERNEL, DW_TC_KERNEL)},
+              **{R_SYMBOLS[simt]: R_PER_STEP[simt] - sum(
+                  TC_PER_STEP[r] for r, twin in TC_TWIN.items()
+                  if twin == simt)
+                 for simt in TC_TWIN.values()}}
 
 
 def tc_rows(name):
@@ -1897,7 +1924,7 @@ def routes(dtype, base=R_PER_STEP, names=tuple(dict.fromkeys(
     count in ``tc`` when the convs see bf16 and none in float32,
     ``<name>_simt`` the rest (every conv of ResNet-50 has C and O
     multiples of 64, so only the dtype and, for brgemm, the mode and the
-    fold decide)."""
+    fold, for the 3x3 dx the stride, decide)."""
     out = dict(base)
     for name in names:
         rows = tc_rows(name)
@@ -1948,7 +1975,7 @@ _R_COUNTED = {}
 
 def r_counters():
     """(wrapper, attribute) that counts each ResNet kernel's launches, and
-    brgemm's, the 3x3 forward's and the weight gradient's by route, taken
+    brgemm's and each 3x3 kernel's by route, taken
     once, before ``plain_conv_kernels`` swaps any wrapper out."""
     if not _R_COUNTED:
         from paddle_tpu_torch.kernels import conv_fused as cf
@@ -1963,6 +1990,8 @@ def r_counters():
             convkxk_tc=(cf.convkxk_cuda, "tc_launches"),
             convkxk_simt=(cf.convkxk_cuda, "simt_launches"),
             convkxk_dx=(cf.convkxk_dx, "launches"),
+            convkxk_dx_tc=(cf.convkxk_dx_cuda, "tc_launches"),
+            convkxk_dx_simt=(cf.convkxk_dx_cuda, "simt_launches"),
             convkxk_dw=(cf.convkxk_dw, "launches"),
             convkxk_dw_tc=(cf.convkxk_dw_cuda, "tc_launches"),
             convkxk_dw_simt=(cf.convkxk_dw_cuda, "simt_launches"),
@@ -2034,8 +2063,8 @@ def conv_calls(shape, x, w, g, extra=None, route=None):
     adds the epilogue to the forward and the fold to the backward:
     (scale, bias, residual, saved output). ``route`` ({call: route})
     makes the named calls launch that route's kernel uncounted
-    (``brgemm_launch``, ``convkxk_launch``, ``convkxk_dw_launch``) in place
-    of the counted wrapper and its rule."""
+    (``brgemm_launch``, ``convkxk_launch``, ``convkxk_dx_launch``,
+    ``convkxk_dw_launch``) in place of the counted wrapper and its rule."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     from paddle_tpu_torch.kernels import tiles
     h, c, o, k, s = shape
@@ -2080,6 +2109,7 @@ def conv_calls(shape, x, w, g, extra=None, route=None):
            "convkxk_dw": (lambda: cf.convkxk_dw_cuda(*bwd_dw),
                           lambda: cf.convkxk_dw_reference(*bwd_dw))}
     for name, launch, args in (("convkxk", cf.convkxk_launch, fwd),
+                               ("convkxk_dx", cf.convkxk_dx_launch, bwd_dx),
                                ("convkxk_dw", cf.convkxk_dw_launch, bwd_dw)):
         r = (route or {}).get(name)
         if r is not None:
@@ -2090,7 +2120,7 @@ def conv_calls(shape, x, w, g, extra=None, route=None):
 
 def route_taken(before, name):
     """The route of the one launch of ``name`` (``"brgemm"``,
-    ``"convkxk"`` or ``"convkxk_dw"``) since ``before`` (an
+    ``"convkxk"``, ``"convkxk_dx"`` or ``"convkxk_dw"``) since ``before`` (an
     ``r_counts()``), or None when it was not exactly one launch."""
     after = r_counts()
     got = {r: after[r] - before[r] for r in (*tc_rows(name), f"{name}_simt")}
@@ -2100,19 +2130,20 @@ def route_taken(before, name):
     return taken[0][len(name) + 1:]
 
 
-def want_route(call, dtype, folded):
+def want_route(call, dtype, folded, stride):
     """The route the port's rules name for one of ``conv_calls``' calls at
-    a ResNet-50 shape (C and O multiples of 64): float32 on SIMT; in bf16
-    the 3x3 forward and weight gradient on the tensor cores, the 1x1
-    forward and weight gradient on the tensor-core conv kernels, the 1x1
-    dx with them too unless it folds the cotangent (``folded``: a relu mask
-    or a scale), which stays on SIMT. None for a call without routes."""
-    if call == "convkxk_dx":
-        return None
+    a ResNet-50 shape (C and O multiples of 64) with the conv's ``stride``:
+    float32 on SIMT; in bf16 the 3x3 forward and weight gradient on the
+    tensor cores, the 1x1 forward and weight gradient on the tensor-core
+    conv kernels, the 1x1 dx with them too and the 3x3 dx at stride 1 on
+    the tensor-core forward unless it folds the cotangent (``folded``: a
+    relu mask or a scale); a folding dx and the 3x3 dx at stride 2 stay on
+    SIMT."""
     if dtype != torch.bfloat16:
         return "simt"
     return {"convkxk": "tc", "convkxk_dw": "tc", "brgemm_fwd": "tc_fwd",
             "brgemm_dx": "simt" if folded else "tc_fwd",
+            "convkxk_dx": "simt" if folded or stride != 1 else "tc",
             "brgemm_dw": "tc_dw"}[call]
 
 
@@ -2239,19 +2270,76 @@ def dw_tc_cases(dev, seed):
     return out
 
 
+# R1's further tensor-core dx cases (bf16, stride 1, no fold): (case, x's
+# (h, w, c), o, batch, padding, dilation, x_dtype): a dilated conv
+# (padding 2), an uneven padding whose low pad of g is negative (3 - 2 =
+# 1 row past the top of x: (k - 1) * d - p0 = -1) with C != O, an M that
+# is no multiple of the 128-row tile (3 x 9 x 9 = 243), and a float32 dx
+R1_DX_TC_CASES = [
+    ("dilated", (28, 28, 64), 64, R1_BATCH, ((2, 2), (2, 2)), 2, None),
+    ("uneven_pad", (14, 13, 64), 128, R1_BATCH, ((3, 0), (0, 2)), 1, None),
+    ("ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None),
+    ("f32_out", (28, 28, 128), 128, R1_BATCH, ((1, 1), (1, 1)), 1,
+     torch.float32),
+]
+
+
+def dx_tc_cases(dev, seed):
+    """R1's further bf16 cases of the tensor-core dx through
+    ``convkxk_dx_cuda`` (route asserted) against the plain version, at the
+    backward's gate."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    _, b_tol = R_TOL[torch.bfloat16]
+    out = []
+    for case, (h, wd, c), o, batch, pad, dil, x_dtype in R1_DX_TC_CASES:
+        gen = torch.Generator(device=dev).manual_seed(seed + 4)
+        x_shape = (batch, h, wd, c)
+        w = (torch.randn(o, c, 3, 3, device=dev, generator=gen)
+             * (9 * o) ** -0.5).to(torch.bfloat16)
+        geo = cf.geometry(x_shape, w.shape, (1, 1), pad, (dil, dil))
+        g = torch.randn(batch, geo[7], geo[8], o, device=dev,
+                        generator=gen).to(torch.bfloat16)
+        args = (g, None, None, w, x_shape, x_dtype or torch.bfloat16, (1, 1),
+                pad, (dil, dil))
+        before = r_counts()
+        got = cf.convkxk_dx_cuda(*args)
+        torch.cuda.synchronize()
+        route = route_taken(before, "convkxk_dx")
+        ref = cf.convkxk_dx_reference(*args)
+        diff = (got.float() - ref.float()).abs().max().item()
+        rel = diff / max(ref.float().abs().max().item(), 1e-30)
+        ok = route == "tc" and bool(torch.isfinite(got).all()) and \
+            rel <= b_tol and got.dtype == ref.dtype and \
+            got.shape == ref.shape
+        rec = {"kernel": "convkxk_dx", "route": route, "case": case,
+               "dtype": "bfloat16", "x_shape": list(x_shape), "o": o,
+               "padding": [list(p) for p in pad], "dilation": dil,
+               "out_dtype": str(got.dtype).split(".")[-1],
+               "max_abs_err": diff, "rel_err": rel, "ok": ok}
+        out.append(rec)
+        log(f"[R1] convkxk_dx {route} bfloat16 {case:<10} x {x_shape} O {o} "
+            f"padding {pad} dilation {dil} out {rec['out_dtype']}: "
+            f"|kernel-plain| / max|plain| {rel:.3e} (gate {b_tol:g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("R1", f"{rec}")
+    return out
+
+
 def phase_resnet_kernels(dev, seed):
     """R1: every kernel against its plain version at every distinct conv
     shape of ResNet-50 at 224 (batch 8), forward, dx and dw, in float32
-    and bfloat16; the epilogue and the fold at a strided 1x1 and a strided
-    3x3; each call on the route ``gemm_route``, ``kxk_fwd_route`` and
-    ``dw_route`` name (``want_route``: the tensor cores in bf16, SIMT in
-    float32 and for the 1x1 dx that folds) and the 3x3 tensor-core
-    kernels' further cases
-    (``fwd_tc_cases``, ``dw_tc_cases``); max-pool ties on NHWC CUDA
-    tensors."""
+    and bfloat16; the epilogue and the fold at a strided 1x1, a strided
+    3x3 and a stride-1 3x3; each call on the route ``gemm_route``,
+    ``kxk_fwd_route``, ``dx_route`` and ``dw_route`` name (``want_route``:
+    the tensor cores in bf16, SIMT in float32, for a dx that folds and for
+    the 3x3 dx at stride 2) and the 3x3 tensor-core kernels' further cases
+    (``fwd_tc_cases``, ``dx_tc_cases``, ``dw_tc_cases``); max-pool ties on
+    NHWC CUDA tensors."""
     results, worst = [], {}
     distinct = sorted(set(resnet50_conv_shapes()))
-    extra_shapes = [(56, 256, 512, 1, 2), (56, 128, 128, 3, 2)]
+    extra_shapes = [(56, 256, 512, 1, 2), (56, 128, 128, 3, 2),
+                    (28, 128, 128, 3, 1)]
     for dtype in (torch.float32, torch.bfloat16):
         f_tol, b_tol = R_TOL[dtype]
         for case, shapes in (("path", distinct), ("epilogue+fold",
@@ -2274,12 +2362,12 @@ def phase_resnet_kernels(dev, seed):
                     got = kern()
                     torch.cuda.synchronize()
                     kernel = "brgemm" if name.startswith("brgemm") else name
-                    route = want_route(name, dtype, extra is not None)
-                    if route is not None:
-                        taken = route_taken(before, kernel)
-                        if taken != route:
-                            fail("R1", f"{name} {shape} {dtype}: route "
-                                       f"{taken}, expected {route}")
+                    route = want_route(name, dtype, extra is not None,
+                                       shape[4])
+                    taken = route_taken(before, kernel)
+                    if taken != route:
+                        fail("R1", f"{name} {shape} {dtype}: route "
+                                   f"{taken}, expected {route}")
                     ref = plain()
                     diff = (got.float() - ref.float()).abs().max().item()
                     rel = diff / max(ref.float().abs().max().item(), 1e-30)
@@ -2294,18 +2382,16 @@ def phase_resnet_kernels(dev, seed):
                     results.append(rec)
                     if not ok:
                         fail("R1", f"{rec}")
-                    # each kernel's error on its main path's dtype: the
-                    # SIMT twins' are float32's (R2) since the bf16 step
-                    # takes the tensor cores
-                    key = kernel if route in (None, "simt") else \
-                        f"{kernel}_{route}"
-                    main_dtype = torch.float32 if route == "simt" else \
-                        torch.bfloat16
-                    if dtype == main_dtype and case == "path":
+                    # each kernel row's error on the path's calls it takes:
+                    # a SIMT twin's float32 ones (R2) and the bf16 ones the
+                    # step leaves it (the stride-2 3x3 dx)
+                    key = kernel if route == "simt" else f"{kernel}_{route}"
+                    if case == "path":
                         worst[key] = max(worst.get(key, 0.0), diff)
                 del x, w, g, extra
         torch.cuda.empty_cache()
     results += fwd_tc_cases(dev, seed)
+    results += dx_tc_cases(dev, seed)
     results += dw_tc_cases(dev, seed)
     summary = {}
     for r in results:
@@ -2488,14 +2574,15 @@ def phase_resnet_bench(dev, seed):
     (``PADDLE_TPU_POOL_FUSED`` set), lowp default then ``lowp=""``. In
     each: a warm-up step; the counted step of the main path (counts set to
     0 just before, read just after: 108/16/16/16 conv, the 16 3x3 forwards
-    and the 16 weight gradients on the tensor cores, the 108 1x1 GEMMs 72
-    on the tensor-core forward and 36 on the tensor-core weight gradient
-    (``routes``), 1/1 pool); timed steps (imgs/s over all of them); one
-    profiled step (device busy time, idle share over its own wall time,
-    ``TC_IN_STEP``'s 88 tensor-core forwards, 52 tensor-core
-    weight-gradient GEMMs and no SIMT brgemm, 3x3 forward or weight
-    gradient in its own count, and in the lowp default each kernel's
-    device time from its own launches). In the lowp default also
+    and the 16 weight gradients on the tensor cores, the 16 3x3 dx 13 on
+    the tensor-core forward (stride 1) and 3 on SIMT (stride 2), the 108
+    1x1 GEMMs 72 on the tensor-core forward and 36 on the tensor-core
+    weight gradient (``routes``), 1/1 pool); timed steps (imgs/s over all
+    of them); one profiled step (device busy time, idle share over its own
+    wall time, ``TC_IN_STEP``'s 101 tensor-core forwards, 52 tensor-core
+    weight-gradient GEMMs, 3 SIMT dx and no SIMT brgemm, 3x3 forward or
+    weight gradient in its own count, and in the lowp default each
+    kernel's device time from its own launches). In the lowp default also
     a counted step with the pool knob off (no pool launch) and timed steps
     with the knob off and on in turns (off, on, on, off, ...). In
     ``lowp=""`` an eval forward with the conv+BN+relu epilogue: 36 brgemm,
@@ -2548,8 +2635,7 @@ def phase_resnet_bench(dev, seed):
         set_resnet_knobs(pool=True)
         wall = walls[True]
         # the profile's own count of the kernels the gates count: the
-        # pool kernels, and every 3x3 forward and weight gradient on the
-        # tensor cores
+        # pool kernels, the tensor-core conv kernels and the SIMT twins
         expect = {R_SYMBOLS[k]: R_PER_STEP[k] for k in ("pool_fwd",
                                                         "pool_bwd")}
         expect.update(TC_IN_STEP)
@@ -2581,8 +2667,8 @@ def phase_resnet_bench(dev, seed):
             if tc != TC_IN_STEP:
                 fail("R3", f"{label}: the profiled step ran the conv "
                            f"kernels {tc}, expected {TC_IN_STEP}: every 3x3 "
-                           f"forward and weight gradient and every 1x1 GEMM "
-                           f"on the tensor cores")
+                           f"forward and weight gradient, every stride-1 3x3 "
+                           f"dx and every 1x1 GEMM on the tensor cores")
         log(f"[R3] {label}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
             f"launches a step {counts}; pool knob on: step "
             f"{', '.join(f'{t:.1f}' for t in wall)} ms, "
@@ -2650,11 +2736,11 @@ def library_call(name, shape, x, w, g):
 
 
 # R4's timed parts: (row, route, the ``conv_calls`` calls it launches on
-# that route) over the bf16 step's calls, and the two profiled sessions
+# that route) over the bf16 step's calls, and the three profiled sessions
 # that run them, in each of which no row's kernel symbol repeats. A
 # tensor-core row shares its kernel with another (the 3x3 forward's runs
-# the 1x1 "nn" GEMMs, the weight gradient's the "tn" ones), so the step's
-# own profile cannot time it apart
+# the 1x1 "nn" GEMMs and the stride-1 3x3 dx, the weight gradient's the
+# "tn" ones), so the step's own profile cannot time it apart
 R4_PARTS = {
     "brgemm_nn": ("brgemm", "simt", ("brgemm_fwd", "brgemm_dx")),
     "brgemm_tn": ("brgemm", "simt", ("brgemm_dw",)),
@@ -2663,12 +2749,47 @@ R4_PARTS = {
     "brgemm_tc_dw": ("brgemm_tc_dw", "tc_dw", ("brgemm_dw",)),
     "convkxk": ("convkxk", "simt", ("convkxk",)),
     "convkxk_tc": ("convkxk_tc", "tc", ("convkxk",)),
+    "convkxk_dx_s1": ("convkxk_dx", "simt", ("convkxk_dx",)),
+    "convkxk_dx_s2": ("convkxk_dx", "simt", ("convkxk_dx",)),
+    "convkxk_dx_tc": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
     "convkxk_dw": ("convkxk_dw", "simt", ("convkxk_dw",)),
     "convkxk_dw_tc": ("convkxk_dw_tc", "tc", ("convkxk_dw",)),
 }
+# the conv strides whose calls a part takes (all where it is not named):
+# the tensor-core dx takes the stride-1 3x3 dx, and the SIMT dx is timed on
+# those and on the stride-2 ones apart
+R4_STRIDES = {"convkxk_dx_s1": (1,), "convkxk_dx_s2": (2,),
+              "convkxk_dx_tc": (1,)}
 R4_SESSIONS = (("brgemm_nn", "convkxk_tc", "convkxk_dw_tc", "convkxk",
-                "convkxk_dw"),
-               ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw"))
+                "convkxk_dw", "convkxk_dx_s1"),
+               ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw"),
+               ("convkxk_dx_tc", "convkxk_dx_s2"))
+
+
+# throwaway kernels launched at the start of each R4 session
+R4_LEAD_IN = 8
+
+
+def part_takes(part, call, stride):
+    """Whether the R4 part ``part`` launches ``call`` of a conv of
+    ``stride``."""
+    return call in R4_PARTS[part][2] and \
+        stride in R4_STRIDES.get(part, (stride,))
+
+
+def r4_row_parts(key):
+    """The R4 parts whose calls row ``key``'s numbers are means over: the
+    calls a bf16 step launches on the row's route (for the SIMT dx, its
+    stride-2 part alone) or, for a SIMT twin that the step launches
+    nowhere, every part of the row (timed on the step's calls)."""
+    mine = [p for p in R4_PARTS if R4_PARTS[p][0] == key]
+    if key in TC_TWIN or not routes(torch.bfloat16)[f"{key}_simt"]:
+        return mine
+    tc = [q for q in R4_PARTS if R4_PARTS[q][1] != "simt"]
+    strides = {sh[4] for sh in resnet50_conv_shapes()}
+    return [p for p in mine if not any(
+        part_takes(p, c, s) and part_takes(q, c, s)
+        for q in tc for c in R4_PARTS[p][2] for s in strides)]
 
 
 def r4_records(call, route, shape, batch, dev):
@@ -2688,46 +2809,31 @@ def r4_records(call, route, shape, batch, dev):
     return 1 + (splits > 1)
 
 
-def part_device_ms(rows, calls, records):
-    """Device ms of one R4 part from its kernel's profile rows [(name,
-    count, ms)]: the GEMM kernel launches once for each of ``calls``, a
-    split-K reduction (``splitk_reduce``) for each of the rest of
-    ``records``. A lost record counts at the mean of its kind's kept ones;
-    None when a kind that ran kept none."""
-    total = 0.0
-    for reduction, want in ((False, calls), (True, records - calls)):
-        kind = [r for r in rows if ("splitk_reduce" in r[0]) == reduction]
-        kept = sum(r[1] for r in kind)
-        if want and not kept:
-            return None
-        if kept:
-            total += sum(r[2] for r in kind) * want / kept
-    return total
-
-
 def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     """R4: per kernel row, its device time a launch beside the mean over
     the bf16 step's calls of its bound (the larger of bytes / HBM rate and
     flops / bf16 peak), of its plain version and of a library call (CUDA
     events, ``iters`` calls a distinct shape, weighted by how often the
-    step runs it). The 3x3 dx's time comes from its own launches in the
-    profiled step (the lowp default). Every routed kernel's rows are timed
-    on the step's own calls at batch 256 in bf16, each route through its
-    launch function (``R4_PARTS``, two profiled sessions,
-    ``R4_SESSIONS``): the tensor-core rows, whose kernels the 1x1 and 3x3
-    convs share, and the SIMT twins, which the bf16 step no longer runs
-    (``launches_per_step`` 0); each tensor-core row also carries its
-    twin's time on the same calls as ``simt_ms``. Each tensor-core call is
-    held against its plain version on those inputs (``R_TOL``'s bf16
-    gates). A tensor-core part fails unless its session keeps every
-    record; a SIMT part's lost records count at the mean of the kept ones
-    (``part_device_ms``)."""
+    step runs it). Every conv kernel's rows are timed on the step's own
+    calls at batch 256 in bf16, each route through its launch function
+    (``R4_PARTS``, three profiled sessions, ``R4_SESSIONS``): the
+    tensor-core rows, whose kernels the 1x1 and 3x3 convs and the 3x3 dx
+    share, and the SIMT twins. The bf16 step runs a SIMT kernel only for
+    the stride-2 3x3 dx, so that row's numbers are means over those 3
+    calls (``launches_per_step`` 3; the SIMT dx at stride 1 in
+    ``parts_ms``); the other twins' are over all the step's calls
+    (``launches_per_step`` 0, ``timed_on``), see ``r4_row_parts``. Each
+    tensor-core row also carries its twin's time on the same calls as
+    ``simt_ms``. Each tensor-core call is held against its plain version
+    on those inputs (``R_TOL``'s bf16 gates). A part fails unless its
+    session keeps every record."""
     shapes = resnet50_conv_shapes()
     counts = {}
     for sh in shapes:
         counts[sh] = counts.get(sh, 0) + 1
     acc = {k: {"bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bytes_bound": 0, "n": 0} for k in RESNET_KERNELS}
+    own = {k: r4_row_parts(k) for k in RESNET_KERNELS}
     parts = {p: [] for p in R4_PARTS}
     records = dict.fromkeys(R4_PARTS, 0)
     by_shape, checked = {}, {}
@@ -2736,10 +2842,12 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
         nbytes, flops = conv_work(shape, R3_BATCH, 2)
         b_ms, by = bound_ms(nbytes, flops, torch.bfloat16)
         for name, (_, plain) in conv_calls(shape, x, w, g).items():
-            # the rows this call feeds: its SIMT kernel's and the
-            # tensor-core one the bf16 step takes
-            rows = {row for row, _, calls in R4_PARTS.values()
-                    if name in calls} or {name}
+            # the rows whose means this call is in: the tensor-core one
+            # the bf16 step takes, and its SIMT kernel's unless the step
+            # launches that kernel on other calls alone
+            rows = {R4_PARTS[p][0] for p in R4_PARTS
+                    if p in own[R4_PARTS[p][0]]
+                    and part_takes(p, name, shape[4])}
             t_plain = time_ms(plain, [()], iters)
             t_lib = time_ms(library_call(name, shape, x, w, g), [()], iters)
             for k in rows:
@@ -2752,7 +2860,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
         for part, (row, route, calls) in R4_PARTS.items():
             on = conv_calls(shape, x, w, g, route=dict.fromkeys(calls, route))
             for call in calls:
-                if call not in on:
+                if call not in on or not part_takes(part, call, shape[4]):
                     continue
                 parts[part] += [on[call][0]] * mult
                 records[part] += mult * r4_records(call, route, shape,
@@ -2782,33 +2890,31 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                         "bound_ms": b_ms})
         del x, w, g
 
-    totals, seen = {}, {}
+    totals = {}
     for session in R4_SESSIONS:
         def run(session=session):
+            # a session's first kernel records go missing (on the H100: its
+            # first three, in every retry), so throwaway kernels lead in
+            lead = torch.zeros(R4_LEAD_IN, device=dev)
+            for _ in range(R4_LEAD_IN):
+                lead.add_(1)
             for part in session:
                 for fn in parts[part]:
                     fn()
 
         run()
-        # the sessions are retried until every tensor-core part's records
-        # are all there: those rows' times rest on them alone
-        expect = {R_SYMBOLS[R4_PARTS[p][0]]: records[p] for p in session
-                  if R4_PARTS[p][1] != "simt"}
+        # the sessions are retried until every part's records are all
+        # there: its time is their sum
+        expect = {R_SYMBOLS[R4_PARTS[p][0]]: records[p] for p in session}
         _, rows, _ = profiled(run, f"R4's parts {session}", expect=expect)
         for p in session:
             sym = R_SYMBOLS[R4_PARTS[p][0]]
             got = [r for r in rows if sym in r[0]]
-            seen[p] = sum(r[1] for r in got)
-            if seen[p] != records[p]:
-                if R4_PARTS[p][1] != "simt":
-                    fail("R4", f"{p}: the last of {PROFILE_SESSIONS} "
-                               f"sessions kept {seen[p]} of {records[p]} "
-                               f"{sym} records")
-                # CUPTI drops some SIMT records (PERF.md section 7); each
-                # lost one is taken at the mean of its kernel's kept ones
-                log(f"[R4] {p}: the session kept {seen[p]} of "
-                    f"{records[p]} {sym} records")
-            totals[p] = part_device_ms(got, len(parts[p]), records[p])
+            seen = sum(r[1] for r in got)
+            if seen != records[p]:
+                fail("R4", f"{p}: the last of {PROFILE_SESSIONS} sessions "
+                           f"kept {seen} of {records[p]} {sym} records")
+            totals[p] = sum(r[2] for r in got)
             if not totals[p]:
                 fail("R4", f"the session of {p} recorded no time for a "
                            f"kernel of {sym} it launched")
@@ -2817,17 +2923,18 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     torch.cuda.empty_cache()
     numbers = {}
     in_step = step_rec["kernels_in_step"]
+    step = routes(torch.bfloat16)
     for key, a in acc.items():
-        calls = TC_PER_STEP[key] if key in TC_PER_STEP else R_PER_STEP[key]
+        # the bf16 step's own launches of this row, and the calls its
+        # numbers are means over: those, or all the step's calls of a
+        # SIMT twin the step launches nowhere
+        launches = step[key] if key in TC_TWIN else step[f"{key}_simt"]
+        calls = launches or R_PER_STEP[key]
         if a["n"] != calls:
-            fail("R4", f"{key}: {a['n']} calls in the shape table, "
-                       f"{calls} in a bf16 step")
+            fail("R4", f"{key}: {a['n']} calls of its parts in the shape "
+                       f"table, {calls} in a bf16 step")
         mine = [p for p, (row, _, _) in R4_PARTS.items() if row == key]
-        # the bf16 step's own launches of this row
-        launches = calls if key in TC_TWIN else \
-            R_PER_STEP[key] - sum(TC_PER_STEP[r] for r in tc_rows(key))
-        ms = sum(totals[p] for p in mine) / calls if mine else \
-            in_step[key]["device_ms"] / launches
+        ms = sum(totals[p] for p in own[key]) / calls
         rec = {"ms": ms, "launches_per_step": launches,
                "bound_ms": a["bound_ms"] / calls,
                "bound_by": "bytes" if a["bytes_bound"] * 2 > calls
@@ -2838,9 +2945,8 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                # the two rows of one tensor-core kernel)
                "device_ms_in_step": in_step[key]["device_ms"],
                "profiled_kernels_in_step": in_step[key]["count"],
-               "parts_ms": {p: totals[p] / n_part[p] for p in mine},
-               "parts_records": {p: [seen[p], records[p]] for p in mine}}
-        if mine and not launches:
+               "parts_ms": {p: totals[p] / n_part[p] for p in mine}}
+        if not launches:
             rec["timed_on"] = "bf16, the step's calls, on the SIMT route"
         if key in by_shape:
             rec["by_shape"] = by_shape[key]
@@ -2852,13 +2958,14 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                         f"bound")
         if key in TC_TWIN:
             twin = [p for p, (row, _, cs) in R4_PARTS.items()
-                    if row == TC_TWIN[key] and cs == R4_PARTS[key][2]]
+                    if row == TC_TWIN[key] and cs == R4_PARTS[key][2]
+                    and R4_STRIDES.get(p) == R4_STRIDES.get(key)]
             rec["simt_ms"] = sum(totals[p] for p in twin) / calls
             rec["rel_err_at_batch"] = checked[key]
         numbers[key] = rec
-        where = " (timed on their calls)" if mine else ""
-        log(f"[R4] {key} (bf16, mean over the step's {calls} calls"
-            f"{where}, {launches} launched in the step): "
+        where = (f"the {calls} calls the step launches on it" if launches
+                 else f"the step's {calls} calls, none launched on it")
+        log(f"[R4] {key} (bf16, mean over {where}): "
             f"kernel {ms:.3f} ms (device), plain {rec['plain_ms']:.3f} ms, "
             f"library {rec['library_ms']:.3f} ms (CUDA events); bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) = "
@@ -2866,6 +2973,10 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
             + (f"; SIMT on the same calls {rec['simt_ms']:.3f} ms (device)"
                f"; worst |kernel-plain| / max|plain| on them "
                f"{rec['rel_err_at_batch']:.3e}" if key in TC_TWIN else ""))
+        if len(mine) > 1:
+            log(f"[R4]   {key} by part: " + ", ".join(
+                f"{p} {rec['parts_ms'][p]:.3f} ms a call over {n_part[p]}"
+                for p in mine))
     for sym in (FWD_TC_KERNEL, DW_TC_KERNEL):
         rows = [r for r in TC_KERNEL if TC_KERNEL[r] == sym]
         log(f"[R4] {sym}: {in_step[rows[0]]['device_ms']:.3f} ms over "
@@ -3882,10 +3993,11 @@ def main(argv=None):
             launches[key] += b1_launches[key]
     launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
-    # default), where every 3x3 forward and weight gradient and every 1x1
-    # GEMM takes the tensor cores; the SIMT brgemm, forward and weight
-    # gradient: R2's float32 steps, and brgemm and the SIMT forward also
-    # the (float32) eval forward; seqpool: the classifier's counted
+    # default), where every 3x3 forward and weight gradient, every
+    # stride-1 3x3 dx and every 1x1 GEMM takes the tensor cores and the
+    # stride-2 3x3 dx SIMT; the SIMT brgemm, forward, dx and weight
+    # gradient: R2's float32 steps too, and brgemm and the SIMT forward
+    # also the (float32) eval forward; seqpool: the classifier's counted
     # unfused run
     launches.update(r_main["launches"])
     route_paths = {

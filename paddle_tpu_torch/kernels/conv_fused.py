@@ -35,6 +35,13 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
   ``conv_kxk_dw`` of ``csrc/conv_kxk.cu`` (float32 FMAs) for the rest.
   Neither gives way to the other: ``convkxk_dw_launch`` launches the one
   it is named, or raises.
+- The input gradient has two kernels, chosen by the pure rule
+  ``dx_route``: a stride-1 dx that folds nothing is the forward conv of g
+  with the taps flipped and C and O swapped (``dx_geometry``), so for
+  bf16 with C and O multiples of 64 at a 16-byte aligned g it runs on the
+  tensor-core forward ``csrc/conv_kxk_fwd_tc.cu``; the rest (stride 2, a
+  fold, float32) runs ``conv_kxk_dx`` of ``csrc/conv_kxk.cu`` (float32
+  FMAs). ``convkxk_dx_launch`` launches the one it is named, or raises.
 
 The plain versions are the same functions in PyTorch: a float32
 ``F.conv2d`` (and its gradients through autograd) on the padded input, the
@@ -243,11 +250,63 @@ def _fold_checks(g, mask, scale, dev, o):
         check_operand("scale", scale, (o,), (torch.float32,), dev)
 
 
-def convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dtype, stride, padding,
-                    dilation):
-    """Launch ``conv_kxk_dx``: g (and the saved output ``mask``) NHWC
-    [N, OH, OW, O] in w's dtype, scale float32 [O] or None. Returns dx
-    [N, H, W, C] in ``x_dtype``."""
+def dx_route(dtype, c, o, aligned, stride, folded):
+    """The input-gradient kernel a CUDA call takes, by a fixed rule:
+    ``"tc"`` (``csrc/conv_kxk_fwd_tc.cu``, wgmma, at ``dx_geometry``) for a
+    stride-(1, 1) dx that folds nothing (``folded``: a relu mask or a scale
+    is given) with bfloat16 g and w (``dtype``: theirs, None when they
+    differ or when dx is to be neither float32 nor bfloat16), C and O
+    multiples of 64 and g at a 16-byte aligned base (``aligned``); the
+    forward conv the dx becomes has O input and C output channels, so the
+    rule is ``tiles.tc_fits(dtype, o, c, aligned)``. ``"simt"``
+    (``conv_kxk_dx`` of ``csrc/conv_kxk.cu``) for everything else: a
+    stride of 2, whose cotangent has zeros between its rows and columns; a
+    fold, which the forward kernel does not apply to its input; float32,
+    whose 1e-4 backward gate no tensor-core input type meets; and other
+    channel counts."""
+    if tuple(stride) != (1, 1) or folded:
+        return "simt"
+    return "tc" if tiles.tc_fits(dtype, o, c, aligned) else "simt"
+
+
+def dx_geometry(x_shape, w_shape, stride, padding, dilation):
+    """The Geo (15 ints, as ``geometry``) of the forward conv that a
+    stride-1 dx is: the cotangent [N, OH, OW, O] as x, the weight's taps
+    flipped with C and O swapped as w, output [N, H, W, C]; the low
+    padding ``(k - 1) * d - p0`` as the reference pads g (a tap past
+    either edge of g reads 0, so the high padding follows from the output
+    size). Raises at another stride: a strided dx is no forward conv of g
+    without zeros between its outputs."""
+    if tuple(stride) != (1, 1):
+        raise ValueError(f"a dx is a forward conv at stride (1, 1), not "
+                         f"{tuple(stride)}")
+    n, h, wd, c, o, kh, kw, oh, ow, _, _, ph0, pw0, dh, dw = geometry(
+        x_shape, w_shape, stride, padding, dilation)
+    return (n, oh, ow, o, c, kh, kw, h, wd, 1, 1, (kh - 1) * dh - ph0,
+            (kw - 1) * dw - pw0, dh, dw)
+
+
+def _dx_facts(g, mask, scale, w, x_dtype):
+    """What ``dx_route`` reads of a call beside its widths and stride:
+    (whether a mask or a scale is folded, the dtype of g and w or None
+    when they differ or when dx is to be neither float32 nor bfloat16,
+    whether g is at a 16-byte aligned base)."""
+    dtype = g.dtype if w.dtype == g.dtype and x_dtype in DTYPE_CODES \
+        else None
+    return mask is not None or scale is not None, dtype, \
+        g.data_ptr() % 16 == 0
+
+
+def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
+                      padding, dilation, facts=None):
+    """Launch the input-gradient kernel of ``route`` (``"tc"`` or
+    ``"simt"``) on the inputs ``convkxk_dx_cuda`` takes; count nothing.
+    Returns dx [N, H, W, C] in ``x_dtype``. Raises on what the kernel does
+    not take and on a launch error: the tensor-core route refuses a fold,
+    a stride other than (1, 1) and operands other than bfloat16 before any
+    launch, and its C entry (which then computes nothing) channels that
+    are not multiples of 64 and a misaligned g. ``facts``: this call's
+    ``_dx_facts``, where the caller has them."""
     dev = g.device
     geo = geometry(x_shape, w.shape, stride, padding, dilation)
     n, h, wd, c, o, kh, kw, oh, ow = geo[:9]
@@ -256,17 +315,66 @@ def convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dtype, stride, padding,
                          f"{(n, oh, ow, o)}")
     _fold_checks(g, mask, scale, dev, o)
     check_operand("w", w, w.shape, (g.dtype,), dev)
-    wk = w.permute(2, 3, 0, 1).contiguous()          # [KH, KW, O, C]
+    if x_dtype not in DTYPE_CODES:
+        raise TypeError(f"x_dtype {x_dtype} is not float32/bfloat16")
+    folded, dtype, _ = facts or _dx_facts(g, mask, scale, w, x_dtype)
+    if route == "tc":
+        if folded:
+            raise ValueError("conv_kxk_fwd_tc computes a dx that folds "
+                             "nothing, not one with a mask or a scale")
+        geo = dx_geometry(x_shape, w.shape, stride, padding, dilation)
+        if dtype != torch.bfloat16:
+            raise TypeError(f"conv_kxk_fwd_tc takes bfloat16, not {g.dtype}")
+        # [KH, KW, O, C] with the taps flipped: the forward's [KH, KW, C, O]
+        # for a conv of O input and C output channels
+        wk = w.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    elif route == "simt":
+        wk = w.permute(2, 3, 0, 1).contiguous()      # [KH, KW, O, C]
+    else:
+        raise ValueError(f"no input-gradient route {route!r}")
     dx = torch.empty(x_shape, dtype=x_dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _lib().conv_kxk_dx(
-            g.data_ptr(), ptr(mask), ptr(scale),
-            DTYPE_CODES[mask.dtype] if mask is not None else 0,
-            wk.data_ptr(), dx.data_ptr(), geo_arg(geo), DTYPE_CODES[g.dtype],
-            DTYPE_CODES[x_dtype], torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, "conv_kxk_dx")
-    convkxk_dx.launches += 1
+        if route == "tc":
+            name = "conv_kxk_fwd_tc"
+            err = tiles.fwd_tc_lib().conv_kxk_fwd_tc(
+                g.data_ptr(), wk.data_ptr(), dx.data_ptr(), None, None, None,
+                0, 0, geo_arg(geo), DTYPE_CODES[g.dtype],
+                DTYPE_CODES[x_dtype], stream)
+        else:
+            name = "conv_kxk_dx"
+            err = _lib().conv_kxk_dx(
+                g.data_ptr(), ptr(mask), ptr(scale),
+                DTYPE_CODES[mask.dtype] if mask is not None else 0,
+                wk.data_ptr(), dx.data_ptr(), geo_arg(geo),
+                DTYPE_CODES[g.dtype], DTYPE_CODES[x_dtype], stream)
+    raise_on(err, name)
     return dx
+
+
+def convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dtype, stride, padding,
+                    dilation):
+    """Launch the input-gradient kernel that ``dx_route`` picks: g (and
+    the saved output ``mask``) NHWC [N, OH, OW, O] in w's dtype, scale
+    float32 [O] or None. Returns dx [N, H, W, C] in ``x_dtype``. Counts
+    the launch in ``convkxk_dx.launches`` and in
+    ``convkxk_dx_cuda.tc_launches`` or ``.simt_launches``. Raises on what
+    the kernel does not take and on a launch error."""
+    facts = _dx_facts(g, mask, scale, w, x_dtype)
+    folded, dtype, aligned = facts
+    route = dx_route(dtype, w.shape[1], w.shape[0], aligned, stride, folded)
+    dx = convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype,
+                           stride, padding, dilation, facts=facts)
+    convkxk_dx.launches += 1
+    if route == "tc":
+        convkxk_dx_cuda.tc_launches += 1
+    else:
+        convkxk_dx_cuda.simt_launches += 1
+    return dx
+
+
+convkxk_dx_cuda.tc_launches = 0
+convkxk_dx_cuda.simt_launches = 0
 
 
 def dw_route(dtype, c, o, aligned):

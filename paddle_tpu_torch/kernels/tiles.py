@@ -184,10 +184,11 @@ def ptr(t):
 
 def tc_fits(dtype, m, n, aligned):
     """The rule of every tensor-core conv route (``gemm_route`` here,
-    ``conv_fused.kxk_fwd_route`` and ``dw_route``): bfloat16 operands
-    (``dtype``: theirs, None when they differ), both widths multiples of
-    64, 16-byte aligned bases (``aligned``). Float32 never fits: no
-    tensor-core input type meets its gates (1e-5 forward, 1e-4 backward)."""
+    ``conv_fused.kxk_fwd_route``, ``dw_route`` and ``dx_route``): bfloat16
+    operands (``dtype``: theirs, None when they differ), both widths
+    multiples of 64, 16-byte aligned bases (``aligned``). Float32 never
+    fits: no tensor-core input type meets its gates (1e-5 forward, 1e-4
+    backward)."""
     return dtype == torch.bfloat16 and m % 64 == 0 and n % 64 == 0 and \
         bool(aligned)
 

@@ -166,7 +166,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         == (1, 0)
     assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
                                        "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 19
+    assert len(chip_smoke.KERNELS) == 20
 
 
 def test_kernels_line_has_the_tensor_core_weight_gradient_row():
@@ -192,6 +192,7 @@ def test_kernels_line_has_the_tensor_core_forward_row():
     assert simt["replaces"] == row["replaces"]
     assert {"convkxk", "convkxk_tc"} <= set(chip_smoke.RESNET_KERNELS)
     assert chip_smoke.TC_TWIN == {"convkxk_tc": "convkxk",
+                                  "convkxk_dx_tc": "convkxk_dx",
                                   "convkxk_dw_tc": "convkxk_dw",
                                   "brgemm_tc_fwd": "brgemm",
                                   "brgemm_tc_dw": "brgemm"}
@@ -217,8 +218,9 @@ def test_profile_symbols_tell_the_forward_routes_apart():
     for other in ("convkxk_dx", "convkxk_dw", "convkxk_dw_tc", "brgemm"):
         assert chip_smoke.R_SYMBOLS[other] not in fwd_name
     tc_in_step = chip_smoke.TC_IN_STEP
-    assert tc_in_step == {kern: 16 + 72, simt: 0,
+    assert tc_in_step == {kern: 16 + 13 + 72, simt: 0,
                           chip_smoke.DW_TC_KERNEL: 16 + 36,
+                          chip_smoke.R_SYMBOLS["convkxk_dx"]: 3,
                           chip_smoke.R_SYMBOLS["convkxk_dw"]: 0,
                           chip_smoke.R_SYMBOLS["brgemm"]: 0}
 
@@ -239,9 +241,9 @@ def test_fwd_routes_split_the_3x3_forwards_by_dtype(dtype, base, table, tc,
     assert {k: v for k, v in want.items()
             if k not in ("convkxk_tc", "convkxk_simt")} == counts
     every = chip_smoke.routes(dtype, counts, tc=table)
-    assert every == dict(chip_smoke.routes(dtype, counts, ("convkxk_dw",
-                                                           "brgemm"), table),
-                         convkxk_tc=tc, convkxk_simt=simt)
+    assert every == dict(chip_smoke.routes(
+        dtype, counts, ("convkxk_dx", "convkxk_dw", "brgemm"), table),
+        convkxk_tc=tc, convkxk_simt=simt)
 
 
 def test_eval_forward_reaches_the_3x3_convs_in_float32(monkeypatch):
@@ -350,6 +352,76 @@ def test_resnet_3x3_shapes_take_the_route_the_script_asserts():
         assert dw_route(torch.bfloat16, c, o, True) == "tc"
 
 
+def test_kernels_line_has_the_tensor_core_dx_row():
+    """The 20th row: #7's tensor-core route, the accepted tensor-core
+    forward's source at the geometry of the forward conv a stride-1 dx is,
+    named after the counter of the wrapper that picks it, with its own
+    part in R4 and the forward's kernel symbol in the profile."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    row, simt = chip_smoke.KERNELS["convkxk_dx_tc"], \
+        chip_smoke.KERNELS["convkxk_dx"]
+    assert row == {"route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
+                   "replaces": "paddle_tpu/kernels/conv_fused.py:425"}
+    assert simt["replaces"] == row["replaces"]
+    assert "convkxk_dx_tc" in chip_smoke.RESNET_KERNELS
+    assert chip_smoke.tc_rows("convkxk_dx") == ["convkxk_dx_tc"]
+    assert chip_smoke.TC_KERNEL["convkxk_dx_tc"] == chip_smoke.FWD_TC_KERNEL
+    assert chip_smoke.R_SYMBOLS["convkxk_dx_tc"] == "conv_kxk_fwd_tc"
+    assert hasattr(cf.convkxk_dx_cuda, "tc_launches")
+    assert set(chip_smoke.r_counters()) >= {"convkxk_dx_tc",
+                                            "convkxk_dx_simt"}
+
+
+@pytest.mark.parametrize("dtype,base,table,tc,simt", [
+    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 13, 3),
+    (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 16),
+    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 13, 3),
+    (torch.bfloat16, "R_EVAL", "TC_EVAL", 0, 0),
+], ids=["bf16_step", "f32_step", "bf16_pool_off", "eval"])
+def test_dx_routes_split_the_3x3_dx_by_dtype_and_stride(dtype, base, table,
+                                                        tc, simt):
+    counts, table = getattr(chip_smoke, base), getattr(chip_smoke, table)
+    want = chip_smoke.routes(dtype, counts, ("convkxk_dx",), table)
+    assert (want["convkxk_dx_tc"], want["convkxk_dx_simt"]) == (tc, simt)
+    assert want["convkxk_dx"] == tc + simt
+    assert {k: v for k, v in want.items()
+            if not k.startswith("convkxk_dx_")} == counts
+
+
+def test_resnet_3x3_dx_take_the_route_the_script_asserts():
+    """R1, R3 and R4 assert ResNet-50's 13 stride-1 3x3 dx on the tensor
+    cores in bf16 and the 3 stride-2 ones, and every float32 one, on SIMT:
+    the port's rule says so for every 3x3 shape of the step; the further
+    R1 cases are bf16 tc calls that cover a dilation, a negative low pad
+    of g with C != O, an M that is no multiple of the 128-row tile and a
+    float32 dx."""
+    from paddle_tpu_torch.kernels.conv_fused import dx_geometry, dx_route
+    strides = [s for h, c, o, k, s in chip_smoke.resnet50_conv_shapes()
+               if k == 3]
+    assert strides.count(1) == chip_smoke.TC_PER_STEP["convkxk_dx_tc"] == 13
+    for h, c, o, k, s in chip_smoke.resnet50_conv_shapes():
+        if k == 3:
+            assert dx_route(torch.bfloat16, c, o, True, (s, s), False) == \
+                ("tc" if s == 1 else "simt")
+            assert dx_route(torch.float32, c, o, True, (s, s), False) == \
+                "simt"
+            assert dx_route(torch.bfloat16, c, o, True, (s, s), True) == \
+                "simt"
+    cases = {c[0]: c for c in chip_smoke.R1_DX_TC_CASES}
+    geos = {}
+    for name, (h, wd, c), o, batch, pad, dil, _ in cases.values():
+        assert dx_route(torch.bfloat16, c, o, True, (1, 1), False) == "tc"
+        geos[name] = dx_geometry((batch, h, wd, c), (o, c, 3, 3), (1, 1),
+                                 pad, (dil, dil))
+    assert cases["dilated"][5] == 2
+    assert geos["uneven_pad"][11] < 0 and cases["uneven_pad"][1][2] != \
+        cases["uneven_pad"][2]
+    n, h, wd = geos["ragged_m"][0], geos["ragged_m"][7], geos["ragged_m"][8]
+    assert n * h * wd % 128 != 0
+    assert cases["f32_out"][6] == torch.float32
+
+
 def test_kernels_line_has_the_brgemm_tensor_core_rows():
     """The 18th and 19th rows: #4's tensor-core routes, built from the
     accepted tensor-core conv kernels' sources, named <twin>_<route> after
@@ -397,6 +469,7 @@ class _FakeLaunches:
         for mod, name, plain in (
                 (tiles, "brgemm_launch", tiles.brgemm_reference),
                 (cf, "convkxk_launch", cf.convkxk_reference),
+                (cf, "convkxk_dx_launch", cf.convkxk_dx_reference),
                 (cf, "convkxk_dw_launch", cf.convkxk_dw_reference)):
             monkeypatch.setattr(mod, name, self._fake(plain))
         for f, a in chip_smoke.r_counters().values():
@@ -415,8 +488,8 @@ def test_conv_calls_take_the_route_the_script_asserts(monkeypatch, dtype):
     """R1's ``want_route`` is what the port's wrappers pick (their rules
     and counters, the launches faked) for every call ``conv_calls`` makes
     at every distinct ResNet-50 shape, with and without the epilogue and
-    the fold: in bf16 a 1x1 dx that folds stays on SIMT, every other call
-    takes the tensor cores."""
+    the fold: in bf16 a dx that folds and a 3x3 dx at stride 2 stay on
+    SIMT, every other call takes the tensor cores."""
     fake = _FakeLaunches(monkeypatch)
     for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
         x, w, g = chip_smoke.r_inputs(shape, 1, dtype, "cpu", 0)
@@ -427,16 +500,16 @@ def test_conv_calls_take_the_route_the_script_asserts(monkeypatch, dtype):
         for ex in (None, extra):
             for name, (kern, _) in chip_smoke.conv_calls(shape, x, w, g,
                                                          ex).items():
-                want = chip_smoke.want_route(name, dtype, ex is not None)
-                if want is None:            # the 3x3 dx: no routes
-                    continue
+                want = chip_smoke.want_route(name, dtype, ex is not None,
+                                             shape[4])
                 kernel = "brgemm" if name.startswith("brgemm") else name
                 before = chip_smoke.r_counts()
                 kern()
                 assert chip_smoke.route_taken(before, kernel) == want, \
                     (name, shape)
                 assert fake.routes[-1] == want
-    assert "tc_fwd" in fake.routes or dtype == torch.float32
+    assert {"tc_fwd", "tc_dw", "tc", "simt"} == set(fake.routes) or \
+        dtype == torch.float32
 
 
 @pytest.mark.parametrize("lowp", ["grad+out+blk+stem+bnres", ""],
@@ -446,8 +519,10 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
     through the wrappers (launches faked) counts ``routes(bf16)``, every
     1x1 forward and dx on the tensor-core forward (no conv of the step
     folds: BatchNorm runs apart in training) and every 1x1 weight
-    gradient on the tensor-core weight gradient; the pure bf16 model's
-    eval forward counts ``routes(EVAL_DTYPE, R_EVAL)``, all on SIMT."""
+    gradient on the tensor-core weight gradient, the 13 stride-1 3x3 dx on
+    the tensor-core forward and the 3 stride-2 ones on SIMT; the pure bf16
+    model's eval forward counts ``routes(EVAL_DTYPE, R_EVAL)``, all on
+    SIMT."""
     from paddle_tpu_torch import bench
     from paddle_tpu_torch.kernels import conv_fused as cf
     from paddle_tpu_torch.kernels import tiles
@@ -457,21 +532,24 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
     monkeypatch.setattr(nn_ops, "CONV_FUSED", True)
     for mod, plain, cuda in ((tiles, "brgemm_reference", tiles.brgemm_cuda),
                              (cf, "convkxk_reference", cf.convkxk_cuda),
+                             (cf, "convkxk_dx_reference",
+                              cf.convkxk_dx_cuda),
                              (cf, "convkxk_dw_reference",
                               cf.convkxk_dw_cuda)):
         monkeypatch.setattr(mod, plain, cuda)
     model, params, opt, state, x, labels = bench.build(2, 64, lowp, "cpu")
 
     def routed(counts):
-        # the routed kernels' counts (the 3x3 dx and the pool kernels run
-        # their plain versions here and count nothing)
+        # the routed kernels' counts (the pool kernels run their plain
+        # versions here and count nothing)
         return {k: v for k, v in counts.items() if k.startswith(
-            ("brgemm", "convkxk")) and not k.startswith("convkxk_dx")}
+            ("brgemm", "convkxk"))}
 
     chip_smoke.zero_r_counts()
     bench.train_step(model, params, opt, state, x, labels)
-    assert routed(chip_smoke.r_counts()) == \
-        routed(chip_smoke.routes(torch.bfloat16))
+    counts = chip_smoke.r_counts()
+    assert routed(counts) == routed(chip_smoke.routes(torch.bfloat16))
+    assert (counts["convkxk_dx_tc"], counts["convkxk_dx_simt"]) == (13, 3)
     if not lowp:
         model.eval()
         chip_smoke.zero_r_counts()
@@ -482,59 +560,72 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
 
 
 def test_r4_parts_time_every_routed_row_apart():
-    """Each routed row's calls are launched in exactly one session part of
-    its own route; every tensor-core row has a SIMT part over the same
-    calls; the SIMT parts of a kernel cover all its calls; no kernel
-    symbol repeats within a session."""
+    """At every ResNet-50 shape, each call of ``conv_calls`` is launched in
+    exactly one SIMT part and, where the bf16 step takes the tensor cores,
+    in exactly one part of that route: the SIMT dx at stride 1 and at
+    stride 2 apart, in different sessions. No kernel symbol repeats
+    within a session; every tensor-core row has a SIMT part over the same
+    calls; every ResNet kernel row has a part."""
     parts, sessions = chip_smoke.R4_PARTS, chip_smoke.R4_SESSIONS
     assert sorted(p for s in sessions for p in s) == sorted(parts)
+    assert len(sessions) == 3
     for session in sessions:
         syms = [chip_smoke.R_SYMBOLS[parts[p][0]] for p in session]
         assert all(a not in b for a in syms for b in syms if a is not b)
-    calls = {"brgemm": {"brgemm_fwd", "brgemm_dx", "brgemm_dw"},
-             "convkxk": {"convkxk"}, "convkxk_dw": {"convkxk_dw"}}
-    for simt, want in calls.items():
-        got = [c for row, route, cs in parts.values() if row == simt
-               for c in cs]
-        assert sorted(got) == sorted(want)
-        assert {route for row, route, _ in parts.values()
-                if row == simt} == {"simt"}
-        for tc in chip_smoke.tc_rows(simt):
-            (route, cs), = [(r, c) for row, r, c in parts.values()
-                            if row == tc]
-            assert tc == f"{simt}_{route}"
-            assert any(row == simt and c == cs
-                       for row, _, c in parts.values())
+    for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
+        for call in (("brgemm_fwd", "brgemm_dx", "brgemm_dw")
+                     if shape[3] == 1 else
+                     ("convkxk", "convkxk_dx", "convkxk_dw")):
+            kernel = "brgemm" if call.startswith("brgemm") else call
+            takers = [p for p in parts
+                      if chip_smoke.part_takes(p, call, shape[4])]
+            simt = [p for p in takers if parts[p][1] == "simt"]
+            assert len(simt) == 1 and parts[simt[0]][0] == kernel
+            tc = [p for p in takers if parts[p][1] != "simt"]
+            want = chip_smoke.want_route(call, torch.bfloat16, False,
+                                         shape[4])
+            assert [parts[p][1] for p in tc] == \
+                ([] if want == "simt" else [want]), (call, shape)
+            for p in tc:
+                assert parts[p][0] == f"{kernel}_{want}"
+                assert parts[p][2] == parts[simt[0]][2]
+                assert chip_smoke.R4_STRIDES.get(p) == \
+                    chip_smoke.R4_STRIDES.get(simt[0])
+    dx_s1, dx_s2 = (next(p for p in parts if parts[p][0] == "convkxk_dx"
+                         and chip_smoke.part_takes(p, "convkxk_dx", s))
+                    for s in (1, 2))
+    assert dx_s1 != dx_s2
+    assert not any(dx_s1 in s and dx_s2 in s for s in sessions)
     assert set(r for r, _, _ in parts.values()) == \
-        set(chip_smoke.RESNET_KERNELS) - {"convkxk_dx"}
+        set(chip_smoke.RESNET_KERNELS)
 
 
-# (profile rows [(name, count, ms)], calls, records, the part's ms)
-PART_CASES = [
-    # every record kept: the sum
-    ([("gemm<DenseA>", 4, 8.0), ("splitk_reduce<DenseA>", 4, 0.4)], 4, 8,
-     8.4),
-    # one GEMM record lost: the three kept at their mean, 2.0
-    ([("gemm<DenseA>", 3, 6.0), ("splitk_reduce<DenseA>", 4, 0.4)], 4, 8,
-     8.4),
-    # two reductions lost: the two kept at their mean, 0.1
-    ([("gemm<DenseA>", 4, 8.0), ("splitk_reduce<DenseA>", 2, 0.2)], 4, 8,
-     8.4),
-    # no split: only GEMM records, one lost
-    ([("gemm<DenseA>", 2, 3.0), ("gemm<DenseA, 2>", 1, 1.5)], 4, 4, 6.0),
-    # the reductions ran and kept no record
-    ([("gemm<DenseA>", 4, 8.0)], 4, 8, None),
-]
-
-
-@pytest.mark.parametrize("rows,calls,records,want", PART_CASES)
-def test_r4_part_counts_a_lost_record_at_its_kinds_mean(rows, calls, records,
-                                                       want):
-    """A record CUPTI drops counts at the mean of its kind's kept ones (the
-    GEMM's or the split-K reduction's), so a lost record cannot lower a
-    part's time; a kind that ran and kept none gives no time."""
-    got = chip_smoke.part_device_ms(rows, calls, records)
-    assert got == (None if want is None else pytest.approx(want))
+@pytest.mark.parametrize("key", chip_smoke.RESNET_KERNELS)
+def test_r4_rows_are_means_over_the_calls_the_step_launches_on_them(key):
+    """R4's numbers of a row are means over the calls of its parts
+    (``r4_row_parts``) at every ResNet-50 conv: the calls a bf16 step
+    launches on the row's route, as many as its launches there (for the
+    SIMT dx the 3 stride-2 calls alone), or, for a SIMT twin the step
+    launches nowhere, all the step's calls of its kernel."""
+    step = chip_smoke.routes(torch.bfloat16)
+    launches = step[key] if key in chip_smoke.TC_TWIN else \
+        step[f"{key}_simt"]
+    parts = chip_smoke.r4_row_parts(key)
+    taken = [(shape, call) for shape in chip_smoke.resnet50_conv_shapes()
+             for call in (("brgemm_fwd", "brgemm_dx", "brgemm_dw")
+                          if shape[3] == 1 else
+                          ("convkxk", "convkxk_dx", "convkxk_dw"))
+             if any(chip_smoke.part_takes(p, call, shape[4])
+                    for p in parts)]
+    assert len(taken) == (launches or chip_smoke.R_PER_STEP[key])
+    mine = [p for p, (row, _, _) in chip_smoke.R4_PARTS.items()
+            if row == key]
+    if key == "convkxk_dx":
+        assert launches == 3 and parts != mine
+        assert {(shape[3], shape[4], call) for shape, call in taken} == \
+            {(3, 2, "convkxk_dx")}
+    else:
+        assert parts == mine
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [
@@ -750,7 +841,7 @@ def test_kernels_line_has_the_tensor_core_dq_row():
                    "source": "paddle_tpu_torch/csrc/flash_bwd_dq_tc.cu",
                    "replaces": "paddle_tpu/kernels/attention.py:345"}
     assert simt["replaces"] == row["replaces"]
-    assert len(chip_smoke.KERNELS) == 19
+    assert len(chip_smoke.KERNELS) == 20
     assert "flash_bwd_dq_tc" in chip_smoke.SOURCES
     assert chip_smoke.FLASH_TC_TWIN == {"flash_fwd_tc": "flash_fwd",
                                         "flash_bwd_dq_tc": "flash_bwd_dq",

@@ -9,6 +9,11 @@ kernels (interpret mode), on the CPU.
   and weight gradient, and a bf16 1x1 GEMM, to the tensor-core kernels;
   ``tiles.gemm_geometry``: at its 1x1 geometry the 3x3 kernels' plain
   versions compute the JAX ``brgemm``.
+- ``conv_fused.dx_route`` and ``dx_geometry`` (#7): the rule that sends a
+  bf16 stride-1 dx that folds nothing to the tensor-core forward, and the
+  geometry it runs there: the forward conv of g with the taps flipped
+  and C and O swapped, whose plain version computes the JAX
+  ``_convkxk_dx``.
 - ``conv_fused.conv2d_bn_act`` (#4 for 1x1, #6-#8 for KxK): the output and
   the gradients of x, w, scale, bias and residual over the grid of
   ``tests/test_conv_fused.py`` (ks 1/3, stride 1/2, residual, act), odd
@@ -403,6 +408,206 @@ def test_brgemm_on_cpu_counts_no_route_launch():
     ptiles.brgemm(a.t().contiguous(), a.t().contiguous(), mode="tn",
                   fold_on="b", fold_mask=torch.ones(128, 64).bfloat16())
     assert counts() == before
+
+
+# -- #7's routes: a stride-1 dx without a fold on the tensor-core forward -----
+
+# (id, dtype, c, o, aligned, stride, folded, route)
+DX_ROUTE_CASES = [
+    ("bf16_64", torch.bfloat16, 64, 64, True, (1, 1), False, "tc"),
+    ("bf16_512", torch.bfloat16, 512, 512, True, (1, 1), False, "tc"),
+    ("bf16_c64_o192", torch.bfloat16, 64, 192, True, (1, 1), False, "tc"),
+    ("bf16_c192_o64", torch.bfloat16, 192, 64, True, (1, 1), False, "tc"),
+    ("stride2", torch.bfloat16, 64, 64, True, (2, 2), False, "simt"),
+    ("stride_1x2", torch.bfloat16, 64, 64, True, (1, 2), False, "simt"),
+    ("folded", torch.bfloat16, 64, 64, True, (1, 1), True, "simt"),
+    ("stride2_folded", torch.bfloat16, 64, 64, True, (2, 2), True, "simt"),
+    ("f32", torch.float32, 64, 64, True, (1, 1), False, "simt"),
+    ("mixed_dtypes", None, 64, 64, True, (1, 1), False, "simt"),
+    ("c96", torch.bfloat16, 96, 64, True, (1, 1), False, "simt"),
+    ("o96", torch.bfloat16, 64, 96, True, (1, 1), False, "simt"),
+    ("misaligned", torch.bfloat16, 64, 64, False, (1, 1), False, "simt"),
+]
+
+
+@pytest.mark.parametrize("case", DX_ROUTE_CASES,
+                         ids=[c[0] for c in DX_ROUTE_CASES])
+def test_dx_route_takes_the_tensor_cores_only_where_they_fit(case):
+    _, dtype, c, o, aligned, stride, folded, route = case
+    assert pcf.dx_route(dtype, c, o, aligned, stride, folded) == route
+    want = "tc" if ptiles.tc_fits(dtype, o, c, aligned) and \
+        stride == (1, 1) and not folded else "simt"
+    assert route == want
+
+
+# (id, g dtype, w dtype, x_dtype, stride, fold, g off 16 bytes, route): what
+# ``convkxk_dx_cuda`` reads of a call at C = O = 64
+DX_CALL_CASES = [
+    ("bf16", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, None, False,
+     "tc"),
+    ("bf16_f32_dx", torch.bfloat16, torch.bfloat16, torch.float32, 1, None,
+     False, "tc"),
+    ("stride2", torch.bfloat16, torch.bfloat16, torch.bfloat16, 2, None,
+     False, "simt"),
+    ("mask", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, "mask",
+     False, "simt"),
+    ("scale", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, "scale",
+     False, "simt"),
+    ("f32", torch.float32, torch.float32, torch.float32, 1, None, False,
+     "simt"),
+    ("f16_dx", torch.bfloat16, torch.bfloat16, torch.float16, 1, None, False,
+     "simt"),
+    ("f32_w", torch.bfloat16, torch.float32, torch.bfloat16, 1, None, False,
+     "simt"),
+    ("misaligned_g", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, None,
+     True, "simt"),
+]
+
+
+@pytest.mark.parametrize("case", DX_CALL_CASES,
+                         ids=[c[0] for c in DX_CALL_CASES])
+def test_dx_cuda_reads_the_rules_facts_of_each_call(case, monkeypatch):
+    """``convkxk_dx_cuda``'s route (its launch faked by the plain version,
+    so its rule and counters run on CPU tensors): the dtypes of g, w and
+    dx, the stride, a mask or a scale, and g's base."""
+    _, g_dt, w_dt, x_dt, s, fold, off, route = case
+    taken = []
+
+    def launch(r, *args, facts=None):
+        taken.append(r)
+        return pcf.convkxk_dx_reference(*args)
+
+    monkeypatch.setattr(pcf, "convkxk_dx_launch", launch)
+    for f, a in ((pcf.convkxk_dx, "launches"),
+                 (pcf.convkxk_dx_cuda, "tc_launches"),
+                 (pcf.convkxk_dx_cuda, "simt_launches")):
+        monkeypatch.setattr(f, a, 0)
+    x_shape = (1, 5, 5, 64)
+    oh = (5 - 1) // s + 1
+    g = torch.randn(1, oh, oh, 64).to(g_dt)
+    if off:
+        buf = torch.empty(g.numel() + 1, dtype=g_dt)
+        g = buf[1:].view(g.shape).copy_(g)
+    mask = torch.randn(g.shape).to(g_dt) if fold == "mask" else None
+    scale = torch.rand(64) + 0.5 if fold == "scale" else None
+    w = torch.randn(64, 64, 3, 3).to(w_dt)
+    pcf.convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dt, (s, s),
+                        ((1, 1), (1, 1)), (1, 1))
+    assert taken == [route]
+    assert (pcf.convkxk_dx.launches, pcf.convkxk_dx_cuda.tc_launches,
+            pcf.convkxk_dx_cuda.simt_launches) == \
+        (1, int(route == "tc"), int(route == "simt"))
+
+
+# (x_shape, w_shape, padding, dilation): ResNet-50's four stride-1 3x3 dx at
+# batch 256, a dilated one and an uneven padding with a negative low pad
+DX_GEO_CASES = [
+    ((256, 56, 56, 64), (64, 64, 3, 3), ((1, 1), (1, 1)), (1, 1)),
+    ((256, 28, 28, 128), (128, 128, 3, 3), ((1, 1), (1, 1)), (1, 1)),
+    ((256, 14, 14, 256), (256, 256, 3, 3), ((1, 1), (1, 1)), (1, 1)),
+    ((256, 7, 7, 512), (512, 512, 3, 3), ((1, 1), (1, 1)), (1, 1)),
+    ((2, 9, 9, 16), (32, 16, 3, 3), ((2, 2), (2, 2)), (2, 2)),
+    ((2, 9, 7, 16), (32, 16, 3, 3), ((3, 0), (0, 2)), (1, 1)),
+]
+
+
+def _dx_pads(x_shape, w_shape, padding, dilation):
+    """The reference's pads of g for its stride-1 dx, ((lo_h, hi_h), (lo_w,
+    hi_w)), as ``paddle_tpu/kernels/conv_fused.py`` ``_convkxk_dx``
+    computes them, and g's [OH, OW]."""
+    _, h, wd, _ = x_shape
+    _, _, kh, kw = w_shape
+    (ph0, ph1), (pw0, pw1) = padding
+    dh, dwl = dilation
+    eff_h, eff_w = (kh - 1) * dh + 1, (kw - 1) * dwl + 1
+    oh, ow = h + ph0 + ph1 - eff_h + 1, wd + pw0 + pw1 - eff_w + 1
+    lo_h, lo_w = eff_h - 1 - ph0, eff_w - 1 - pw0
+    hi_h = h + eff_h - 1 - lo_h - ((oh - 1) + 1)
+    hi_w = wd + eff_w - 1 - lo_w - ((ow - 1) + 1)
+    return ((lo_h, hi_h), (lo_w, hi_w)), (oh, ow)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,padding,dilation", DX_GEO_CASES,
+                         ids=str)
+def test_dx_geometry_pads_g_as_the_reference(x_shape, w_shape, padding,
+                                             dilation):
+    """The Geo of the forward conv a stride-1 dx runs: g [N, OH, OW, O] as
+    x with the reference's low pads, the flipped weight of O input and C
+    output channels, and the output H x W: the forward conv of g with the
+    reference's pads on both sides, the high pad included."""
+    n, h, wd, c = x_shape
+    o, _, kh, kw = w_shape
+    pads, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation)
+    geo = pcf.dx_geometry(x_shape, w_shape, (1, 1), padding, dilation)
+    assert geo == (n, oh, ow, o, c, kh, kw, h, wd, 1, 1, pads[0][0],
+                   pads[1][0], *dilation)
+    assert pcf.geometry((n, oh, ow, o), (c, o, kh, kw), (1, 1), pads,
+                        dilation) == geo
+    with pytest.raises(ValueError, match="stride"):
+        pcf.dx_geometry(x_shape, w_shape, (2, 2), padding, dilation)
+
+
+# (id, x_shape, o, padding, dilation): stride-1 3x3 dx at small sizes: C = O
+# = 64, C != O, dilated, uneven padding with a negative low pad of g
+DX_TC_CASES = [
+    ("c64", (2, 7, 7, 64), 64, ((1, 1), (1, 1)), (1, 1)),
+    ("c16_o32", (2, 6, 6, 16), 32, ((1, 1), (1, 1)), (1, 1)),
+    ("dilated", (2, 9, 9, 16), 32, ((2, 2), (2, 2)), (2, 2)),
+    ("uneven_negative_lo", (2, 7, 6, 16), 32, ((3, 0), (0, 2)), (1, 1)),
+]
+
+
+@pytest.mark.parametrize("dt,x_dt", [("f32", "f32"), ("bf16", "bf16"),
+                                     ("bf16", "f32")],
+                         ids=["f32", "bf16", "bf16_f32_dx"])
+@pytest.mark.parametrize("case", DX_TC_CASES,
+                         ids=[c[0] for c in DX_TC_CASES])
+def test_dx_as_a_flipped_forward_conv_matches_the_jax_kernel(case, dt, x_dt):
+    """What the ``tc`` route runs on the card, here in its plain version:
+    the forward conv of g at ``dx_geometry`` (its pads of g on both sides)
+    with the taps flipped and C and O swapped, against the JAX
+    ``_convkxk_dx`` in interpret mode (run eagerly) and the port's plain
+    dx: float32 within 1e-5, a bf16 operand within 2e-2, of max|plain|."""
+    _, x_shape, o, padding, dilation = case
+    n, h, wd, c = x_shape
+    w_shape = (o, c, 3, 3)
+    pads, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation)
+    rs = np.random.RandomState(11)
+    jg, tg = _pair(rs.randn(n, oh, ow, o).astype(np.float32), dt)
+    jw, tw = _pair((rs.randn(*w_shape) * (9 * c) ** -0.5).astype(np.float32),
+                   dt)
+    ref = jcf._convkxk_dx(jg, None, None, jw, x_shape, JAX_DT[x_dt], (1, 1),
+                          padding, dilation, True)
+    geo = pcf.dx_geometry(x_shape, w_shape, (1, 1), padding, dilation)
+    assert (geo[11], geo[12]) == (pads[0][0], pads[1][0])
+    got = pcf.convkxk_reference(tg, tw.flip(2, 3).transpose(0, 1),
+                                padding=pads, dilation=dilation,
+                                out_dtype=TORCH_DT[x_dt])
+    plain = pcf.convkxk_dx_reference(tg, None, None, tw, x_shape,
+                                     TORCH_DT[x_dt], (1, 1), padding,
+                                     dilation)
+    assert got.dtype == plain.dtype == TORCH_DT[x_dt]
+    assert tuple(got.shape) == tuple(ref.shape) == x_shape
+    tol = 1e-5 if dt == "f32" else 2e-2
+    scale = np.abs(_np(ref)).max()
+    for mine in (got, plain):
+        assert np.abs(_np(mine) - _np(ref)).max() <= tol * scale
+
+
+def test_dx_on_cpu_counts_no_route_launch():
+    """CPU tensors at widths and types that take the tensor cores on the
+    card run the plain version: no launch and no route is counted."""
+    def counts():
+        return (pcf.convkxk_dx.launches, pcf.convkxk_dx_cuda.tc_launches,
+                pcf.convkxk_dx_cuda.simt_launches)
+
+    g = torch.randn(2, 5, 5, 64).bfloat16()
+    w = torch.randn(64, 64, 3, 3).bfloat16()
+    before = counts()
+    dx = pcf.convkxk_dx(g, None, None, w, (2, 5, 5, 64), torch.bfloat16,
+                        (1, 1), ((1, 1), (1, 1)), (1, 1))
+    assert counts() == before
+    assert dx.dtype == torch.bfloat16 and tuple(dx.shape) == (2, 5, 5, 64)
 
 
 # -- conv2d_bn_act (#4, #6, #7, #8) ---------------------------------------------

@@ -1,12 +1,11 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
 forward, dQ and dK/dV backward (both routes of each, the SIMT kernel and
 the tensor-core kernel, and the rules that pick one), the fused optimizer
-update, the conv
-kernels (the 3x3 forward's and weight gradient's two routes each, the 1x1
-GEMM's three, and the rules that pick one among them), the fused max pool, the embedding
-seqpool and the row
-LayerNorm against their plain versions, and the kernel launches of a
-tiny BERT step.
+update, the conv kernels (the 3x3 forward's, dx's and weight gradient's
+two routes each, the 1x1 GEMM's three, and the rules that pick one among
+them), the fused max pool, the embedding seqpool and the row LayerNorm
+against their plain versions, and the kernel launches of a tiny BERT
+step.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs on a GPU machine without JAX:
@@ -930,6 +929,169 @@ def test_fwd_tc_launch_raises_and_never_falls_back(cuda):
     assert (_fwd_routes(cf), cf.convkxk.launches) == before
 
 
+# -- the tensor-core 3x3 dx (csrc/conv_kxk_fwd_tc.cu at dx_geometry) ----------
+
+# ResNet-50's distinct stride-1 3x3 shapes (h, c, o, 3, 1): 13 of the step's
+# 16 dx launches
+DX_TC_SHAPES = sorted({s for s in chip_smoke.resnet50_conv_shapes()
+                       if s[3] == 3 and s[4] == 1})
+
+
+def _dx_routes(cf):
+    return cf.convkxk_dx_cuda.tc_launches, cf.convkxk_dx_cuda.simt_launches
+
+
+def _dx_edge_case(dev, case, seed=0):
+    """The arguments of one of chip_smoke's R1 tensor-core dx cases."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    _, (h, wd, c), o, batch, pad, dil, x_dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x_shape = (batch, h, wd, c)
+    w = (torch.randn(o, c, 3, 3, device=dev, generator=gen)
+         * (9 * o) ** -0.5).bfloat16()
+    geo = cf.geometry(x_shape, w.shape, (1, 1), pad, (dil, dil))
+    g = torch.randn(batch, geo[7], geo[8], o, device=dev,
+                    generator=gen).bfloat16()
+    return (g, None, None, w, x_shape, x_dtype or torch.bfloat16, (1, 1), pad,
+            (dil, dil))
+
+
+@pytest.mark.parametrize(
+    "case", [("resnet", s) for s in DX_TC_SHAPES]
+    + [("edge", c) for c in chip_smoke.R1_DX_TC_CASES],
+    ids=[str(s) for s in DX_TC_SHAPES]
+    + [c[0] for c in chip_smoke.R1_DX_TC_CASES])
+def test_dx_tc_route_matches_plain_version(cuda, case):
+    """bf16 at the gate of chip_smoke's R1 (2e-2 of max |plain|), a bf16
+    and a float32 dx at ResNet-50's stride-1 shapes (batch 2), and R1's
+    dilated, uneven-padding, ragged-M and float32-dx cases."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    kind, spec = case
+    if kind == "resnet":
+        x, w, g = chip_smoke.r_inputs(spec, 2, torch.bfloat16, cuda, 0)
+        arg_sets = [(g, None, None, w, x.shape, x_dtype, (1, 1),
+                     ((1, 1), (1, 1)), (1, 1))
+                    for x_dtype in (torch.bfloat16, torch.float32)]
+    else:
+        arg_sets = [_dx_edge_case(cuda, spec)]
+    for args in arg_sets:
+        before = _dx_routes(cf), cf.convkxk_dx.launches
+        got = cf.convkxk_dx_cuda(*args)
+        torch.cuda.synchronize()
+        assert (_dx_routes(cf), cf.convkxk_dx.launches) == \
+            ((before[0][0] + 1, before[0][1]), before[1] + 1)
+        ref = cf.convkxk_dx_reference(*args)
+        assert got.dtype == ref.dtype == args[5]
+        assert got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) < 2e-2, args[5]
+
+
+def test_dx_route_counters_follow_the_rule(cuda):
+    """Of CONV_SHAPES' 3x3 convs none takes the tensor cores (C = 16 or
+    3, O = 70 or 130, or stride 2 at C = O = 64), in either dtype; at C =
+    O = 64 and stride 1 bf16 takes them, and a fold, float32 and a g off
+    16 bytes take SIMT. Every launch counts in ``convkxk_dx.launches``
+    too, and each dx equals its plain version."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    cases = []
+    for shape in CONV_SHAPES + [(8, 64, 64, 3, 1)]:
+        if shape[3] != 3:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            for extra in (False, True):
+                want = "tc" if dtype == torch.bfloat16 and not extra and \
+                    shape == (8, 64, 64, 3, 1) else "simt"
+                cases.append((_conv_case(cuda, shape, dtype, extra), want))
+    for calls, want in cases:
+        kern, plain = calls["convkxk_dx"]
+        before, n = _dx_routes(cf), cf.convkxk_dx.launches
+        got = kern()
+        torch.cuda.synchronize()
+        assert _dx_routes(cf) == ((before[0] + 1, before[1]) if want == "tc"
+                                  else (before[0], before[1] + 1))
+        assert cf.convkxk_dx.launches == n + 1
+        ref = plain()
+        tol = 1e-4 if got.dtype == torch.float32 else 2e-2
+        assert _rel_err(got, ref) < tol
+    x, w, g = chip_smoke.r_inputs((8, 64, 64, 3, 1), 2, torch.bfloat16, cuda,
+                                  0)
+    buf = torch.empty(g.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    off = buf[1:].view(g.shape)              # 2 bytes past an aligned base
+    off.copy_(g)
+    args = (off, None, None, w, x.shape, torch.bfloat16, (1, 1),
+            ((1, 1), (1, 1)), (1, 1))
+    before = _dx_routes(cf)
+    got = cf.convkxk_dx_cuda(*args)
+    torch.cuda.synchronize()
+    assert _dx_routes(cf) == (before[0], before[1] + 1)
+    assert _rel_err(got, cf.convkxk_dx_reference(*args)) < 2e-2
+
+
+def test_dx_tc_launch_raises_and_never_falls_back(cuda):
+    """The tensor-core dx's wrapper refuses a stride of 2, a fold and
+    float32 before any launch, and the forward's C entry C = 16: the
+    launch raises, and no other kernel or plain version runs in its
+    place."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    pads = ((1, 1), (1, 1))
+    x, w, g = chip_smoke.r_inputs((8, 64, 64, 3, 1), 2, torch.bfloat16, cuda,
+                                  0)
+    _, _, g2 = chip_smoke.r_inputs((8, 64, 64, 3, 2), 2, torch.bfloat16,
+                                   cuda, 0)
+    x16, w16, g16 = chip_smoke.r_inputs((8, 16, 64, 3, 1), 2,
+                                        torch.bfloat16, cuda, 0)
+    mask = torch.relu(g)
+    before = _dx_routes(cf), cf.convkxk_dx.launches
+    with pytest.raises(ValueError, match="stride"):
+        cf.convkxk_dx_launch("tc", g2, None, None, w, x.shape, x.dtype,
+                             (2, 2), pads, (1, 1))
+    with pytest.raises(ValueError, match="fold"):
+        cf.convkxk_dx_launch("tc", g, mask, None, w, x.shape, x.dtype,
+                             (1, 1), pads, (1, 1))
+    with pytest.raises(ValueError, match="fold"):
+        cf.convkxk_dx_launch("tc", g, None, torch.ones(64, device=cuda), w,
+                             x.shape, x.dtype, (1, 1), pads, (1, 1))
+    with pytest.raises(TypeError):
+        cf.convkxk_dx_launch("tc", g.float(), None, None, w.float(),
+                             x.shape, torch.float32, (1, 1), pads, (1, 1))
+    with pytest.raises(RuntimeError, match="conv_kxk_fwd_tc launch failed"):
+        cf.convkxk_dx_launch("tc", g16, None, None, w16, x16.shape,
+                             x16.dtype, (1, 1), pads, (1, 1))
+    with pytest.raises(ValueError):
+        cf.convkxk_dx_launch("wgmma", g, None, None, w, x.shape, x.dtype,
+                             (1, 1), pads, (1, 1))
+    assert (_dx_routes(cf), cf.convkxk_dx.launches) == before
+
+
+def test_conv2d_bn_act_3x3_bf16_backward_takes_the_tensor_core_dx(cuda):
+    """The autograd route on the card, as a training step calls it (no
+    epilogue, so nothing folds): a bf16 stride-1 3x3 at C = O = 64 takes
+    the tensor-core dx, a stride-2 one SIMT; the gradients equal the CPU's
+    plain route within 2e-2 of their largest magnitude."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 9, 9, 64, generator=gen).bfloat16()
+    w = (torch.randn(64, 64, 3, 3, generator=gen) / 24).bfloat16()
+    for stride, want in ((1, "tc"), (2, "simt")):
+        oh = (9 - 1) // stride + 1
+        cot = torch.randn(2, oh, oh, 64, generator=gen).bfloat16()
+        outs = {}
+        for dev in ("cpu", cuda):
+            leaves = [t.to(dev).requires_grad_() for t in (x, w)]
+            before = _dx_routes(cf)
+            out = cf.conv2d_bn_act(*leaves, stride=stride, padding=1)
+            grads = torch.autograd.grad(out, leaves, cot.to(dev))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert _dx_routes(cf) == (
+                    (before[0] + 1, before[1]) if want == "tc"
+                    else (before[0], before[1] + 1))
+            outs[str(dev)] = grads
+        for a, b in zip(outs["cpu"], outs[str(cuda)]):
+            assert _rel_err(b.cpu(), a) < 2e-2, stride
+
+
 # -- brgemm's tensor-core routes (the tensor-core conv kernels at 1x1) ---------
 
 # ResNet-50's distinct 1x1 shapes (h, c, o, 1, stride): C = O = 64 (the
@@ -960,7 +1122,7 @@ def test_brgemm_tc_routes_match_plain_version(cuda, shape, extra):
     from paddle_tpu_torch.kernels import tiles
     for name, (kern, plain) in _conv_case(cuda, shape, torch.bfloat16,
                                           extra).items():
-        want = chip_smoke.want_route(name, torch.bfloat16, extra)
+        want = chip_smoke.want_route(name, torch.bfloat16, extra, shape[4])
         before, n = _brgemm_routes(tiles), tiles.brgemm.launches
         got = kern()
         torch.cuda.synchronize()
