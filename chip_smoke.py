@@ -19,9 +19,10 @@ every bf16 3x3 forward of ResNet-50 to ``csrc/conv_kxk_fwd_tc.cu`` (wgmma)
 and ``conv_fused.dw_route`` every bf16 weight gradient to
 ``csrc/conv_kxk_dw_tc.cu`` (wgmma), the float32 ones to the SIMT
 ``conv_kxk_fwd`` and ``conv_kxk_dw``; ``conv_fused.dx_route`` sends every
-bf16 stride-1 3x3 dx without a fold to the tensor-core forward at the
-geometry of the forward conv it is (flipped taps, C and O swapped), the
-stride-2 and float32 ones to the SIMT ``conv_kxk_dx``;
+bf16 3x3 dx without a fold to the tensor-core forward at the geometry of
+the stride-1 forward conv it is (flipped taps, C and O swapped; a
+stride-2 one over g dilated by the stride, as the reference dilates it),
+the float32 ones to the SIMT ``conv_kxk_dx``;
 ``tiles.gemm_route`` sends every bf16 1x1 forward and dx (mode "nn", no
 fold: the step's convs have no relu or scale in their epilogue) to the
 same tensor-core forward and every bf16 1x1 weight gradient (mode "tn")
@@ -36,11 +37,12 @@ R1. kernels  each conv kernel against its plain version at every distinct
              residual, relu) and the cotangent fold at a strided 1x1, a
              strided 3x3 and a stride-1 3x3, each call on the route the
              rules name
-             (``want_route``: tensor cores in bf16, SIMT in float32, for a
-             dx that folds and for a 3x3 dx at stride 2; the worst error
-             logged by route); the tensor-core dx also dilated, with an
-             uneven padding whose low pad of g is negative, at an M that
-             is no multiple of its tile and with a float32 output; the
+             (``want_route``: tensor cores in bf16, SIMT in float32 and for
+             a dx that folds; the worst error logged by route); the
+             tensor-core dx also dilated, with an uneven padding whose low
+             pad of g is negative, at an M that is no multiple of its tile
+             and with a float32 output, and at stride 2 and (2, 1) at a
+             ragged M, an odd H and a float32 output; the
              tensor-core forward also
              dilated, at an M that is no multiple of its tile, at O = 192,
              with a float32 output and with the eval chain (scale, bias,
@@ -124,15 +126,13 @@ Back on the ResNet-50 path:
 
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
              in pure bf16, the pool knob on: the main path's counted step
-             (launches as in R2, every 3x3 forward and weight gradient and
-             the 13 stride-1 3x3 dx on the tensor cores, the 3 stride-2 dx
-             on SIMT, the 1x1 GEMMs 72 on the tensor-core forward
-             and 36 on the tensor-core weight gradient), timed steps
-             (imgs/s over all of them), one profiled step each (device
-             busy time, idle share over its own wall time; its own count
-             of 101 tensor-core forwards, 52 tensor-core weight
-             gradients and 3 SIMT dx, and no other SIMT conv kernel,
-             gated); in the
+             (launches as in R2, every 3x3 forward, dx and weight gradient
+             on the tensor cores, the 1x1 GEMMs 72 on the tensor-core
+             forward and 36 on the tensor-core weight gradient), timed
+             steps (imgs/s over all of them), one profiled step each
+             (device busy time, idle share over its own wall time; its own
+             count of 104 tensor-core forwards, 52 tensor-core weight
+             gradients and no SIMT conv kernel, gated); in the
              lowp default a counted step with the pool knob off (no pool
              launch) and timed steps with the knob off and on in turns; in
              pure bf16 an eval forward through the conv+BN+relu epilogue
@@ -147,10 +147,10 @@ R4. numbers  each conv and pool kernel row's device time a launch beside
              each conv kernel's rows (the tensor-core ones share their
              kernels between 1x1 and 3x3 convs and the 3x3 dx) from the
              step's calls at batch 256 in bf16 launched on each route in
-             three profiled sessions, each tensor-core row beside its SIMT
-             twin on the same calls (``simt_ms``), the SIMT dx at stride
-             1 and at stride 2 apart (its row's numbers are means over
-             the 3 stride-2 calls, the ones the step launches on it).
+             four profiled sessions, each tensor-core row beside its SIMT
+             twin on the same calls (``simt_ms``), the dx at stride 1 and
+             at stride 2 apart on either route, and the stride-2
+             tensor-core dx's dilation of g apart from its kernel.
 
 Then the serving path:
 
@@ -331,7 +331,7 @@ KERNELS = {
         "replaces": "paddle_tpu/kernels/conv_fused.py:425",
     },
     # the same TPU kernel's tensor-core route: the tensor-core conv forward
-    # at the geometry of the forward conv a stride-1 dx without a fold is
+    # at the geometry of the stride-1 forward conv a dx without a fold is
     "convkxk_dx_tc": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
@@ -1862,12 +1862,12 @@ R_PER_STEP = {"brgemm": 108, "convkxk": 16, "convkxk_dx": 16,
 R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0,
           "pool_fwd": 1, "pool_bwd": 0}
 # of those, the launches each tensor-core row takes when the convs see
-# bf16: every 3x3 forward and weight gradient, and the 13 3x3 dx at stride
-# 1 (the first bottleneck of stages 2-4 has a stride-2 3x3); the 1x1
-# forwards and dx are mode "nn" without a fold (no conv of the training
-# step has a relu or a scale in its epilogue: BatchNorm runs apart from
-# it, so no dx folds), their weight gradients mode "tn"
-TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dx_tc": 13, "convkxk_dw_tc": 16,
+# bf16: every 3x3 forward, dx and weight gradient (the 3 stride-2 dx, in
+# the first bottleneck of stages 2-4, over g dilated by the stride); the
+# 1x1 forwards and dx are mode "nn" without a fold (no conv of the
+# training step has a relu or a scale in its epilogue: BatchNorm runs
+# apart from it, so no dx folds), their weight gradients mode "tn"
+TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dx_tc": 16, "convkxk_dw_tc": 16,
                "brgemm_tc_fwd": 72, "brgemm_tc_dw": 36}
 TC_EVAL = {"convkxk_tc": 16, "convkxk_dx_tc": 0, "convkxk_dw_tc": 0,
            "brgemm_tc_fwd": 36, "brgemm_tc_dw": 0}
@@ -1899,10 +1899,10 @@ DW_TC_KERNEL = "conv_kxk_dw_tc_kernel"
 TC_KERNEL = {"convkxk_tc": FWD_TC_KERNEL, "convkxk_dx_tc": FWD_TC_KERNEL,
              "brgemm_tc_fwd": FWD_TC_KERNEL, "convkxk_dw_tc": DW_TC_KERNEL,
              "brgemm_tc_dw": DW_TC_KERNEL}
-# a profiled bf16 step's count of each: the 16 3x3 forwards, 13 stride-1
-# 3x3 dx and 72 1x1 "nn" GEMMs on the tensor-core forward, the 16 3x3 and
-# 36 1x1 weight gradients on the tensor-core weight gradient; each SIMT
-# twin the launches its tensor-core rows leave it (the 3 stride-2 3x3 dx)
+# a profiled bf16 step's count of each: the 16 3x3 forwards, 16 3x3 dx and
+# 72 1x1 "nn" GEMMs on the tensor-core forward, the 16 3x3 and 36 1x1
+# weight gradients on the tensor-core weight gradient; each SIMT twin the
+# launches its tensor-core rows leave it (none)
 TC_IN_STEP = {**{sym: sum(n for r, n in TC_PER_STEP.items()
                           if TC_KERNEL[r] == sym)
                  for sym in (FWD_TC_KERNEL, DW_TC_KERNEL)},
@@ -1924,7 +1924,7 @@ def routes(dtype, base=R_PER_STEP, names=tuple(dict.fromkeys(
     count in ``tc`` when the convs see bf16 and none in float32,
     ``<name>_simt`` the rest (every conv of ResNet-50 has C and O
     multiples of 64, so only the dtype and, for brgemm, the mode and the
-    fold, for the 3x3 dx the stride, decide)."""
+    fold, decide)."""
     out = dict(base)
     for name in names:
         rows = tc_rows(name)
@@ -2135,15 +2135,14 @@ def want_route(call, dtype, folded, stride):
     a ResNet-50 shape (C and O multiples of 64) with the conv's ``stride``:
     float32 on SIMT; in bf16 the 3x3 forward and weight gradient on the
     tensor cores, the 1x1 forward and weight gradient on the tensor-core
-    conv kernels, the 1x1 dx with them too and the 3x3 dx at stride 1 on
-    the tensor-core forward unless it folds the cotangent (``folded``: a
-    relu mask or a scale); a folding dx and the 3x3 dx at stride 2 stay on
-    SIMT."""
+    conv kernels, the 1x1 dx with them too and the 3x3 dx, at any
+    ``stride``, on the tensor-core forward unless it folds the cotangent
+    (``folded``: a relu mask or a scale); a folding dx stays on SIMT."""
     if dtype != torch.bfloat16:
         return "simt"
     return {"convkxk": "tc", "convkxk_dw": "tc", "brgemm_fwd": "tc_fwd",
             "brgemm_dx": "simt" if folded else "tc_fwd",
-            "convkxk_dx": "simt" if folded or stride != 1 else "tc",
+            "convkxk_dx": "simt" if folded else "tc",
             "brgemm_dw": "tc_dw"}[call]
 
 
@@ -2270,36 +2269,47 @@ def dw_tc_cases(dev, seed):
     return out
 
 
-# R1's further tensor-core dx cases (bf16, stride 1, no fold): (case, x's
-# (h, w, c), o, batch, padding, dilation, x_dtype): a dilated conv
-# (padding 2), an uneven padding whose low pad of g is negative (3 - 2 =
-# 1 row past the top of x: (k - 1) * d - p0 = -1) with C != O, an M that
-# is no multiple of the 128-row tile (3 x 9 x 9 = 243), and a float32 dx
+# R1's further tensor-core dx cases (bf16, no fold): (case, x's (h, w, c),
+# o, batch, padding, dilation, x_dtype, stride): a dilated conv (padding
+# 2), an uneven padding whose low pad of g is negative (3 - 2 = 1 row past
+# the top of x: (k - 1) * d - p0 = -1) with C != O, an M that is no
+# multiple of the 128-row tile (3 x 9 x 9 = 243), and a float32 dx; at
+# stride 2 a ragged M (3 x 9 x 9 again, over a 9 x 9 dilated g), an odd H
+# with C != O, a stride of (2, 1) and a float32 dx
 R1_DX_TC_CASES = [
-    ("dilated", (28, 28, 64), 64, R1_BATCH, ((2, 2), (2, 2)), 2, None),
-    ("uneven_pad", (14, 13, 64), 128, R1_BATCH, ((3, 0), (0, 2)), 1, None),
-    ("ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None),
+    ("dilated", (28, 28, 64), 64, R1_BATCH, ((2, 2), (2, 2)), 2, None,
+     (1, 1)),
+    ("uneven_pad", (14, 13, 64), 128, R1_BATCH, ((3, 0), (0, 2)), 1, None,
+     (1, 1)),
+    ("ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None, (1, 1)),
     ("f32_out", (28, 28, 128), 128, R1_BATCH, ((1, 1), (1, 1)), 1,
-     torch.float32),
+     torch.float32, (1, 1)),
+    ("s2_ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None, (2, 2)),
+    ("s2_odd_h", (27, 27, 128), 64, R1_BATCH, ((1, 1), (1, 1)), 1, None,
+     (2, 2)),
+    ("s21", (14, 14, 64), 128, R1_BATCH, ((1, 1), (1, 1)), 1, None, (2, 1)),
+    ("s2_f32_out", (28, 28, 128), 128, R1_BATCH, ((1, 1), (1, 1)), 1,
+     torch.float32, (2, 2)),
 ]
 
 
 def dx_tc_cases(dev, seed):
     """R1's further bf16 cases of the tensor-core dx through
     ``convkxk_dx_cuda`` (route asserted) against the plain version, at the
-    backward's gate."""
+    backward's gate, at each case's stride."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     _, b_tol = R_TOL[torch.bfloat16]
     out = []
-    for case, (h, wd, c), o, batch, pad, dil, x_dtype in R1_DX_TC_CASES:
+    for case, (h, wd, c), o, batch, pad, dil, x_dtype, stride in \
+            R1_DX_TC_CASES:
         gen = torch.Generator(device=dev).manual_seed(seed + 4)
         x_shape = (batch, h, wd, c)
         w = (torch.randn(o, c, 3, 3, device=dev, generator=gen)
              * (9 * o) ** -0.5).to(torch.bfloat16)
-        geo = cf.geometry(x_shape, w.shape, (1, 1), pad, (dil, dil))
+        geo = cf.geometry(x_shape, w.shape, stride, pad, (dil, dil))
         g = torch.randn(batch, geo[7], geo[8], o, device=dev,
                         generator=gen).to(torch.bfloat16)
-        args = (g, None, None, w, x_shape, x_dtype or torch.bfloat16, (1, 1),
+        args = (g, None, None, w, x_shape, x_dtype or torch.bfloat16, stride,
                 pad, (dil, dil))
         before = r_counts()
         got = cf.convkxk_dx_cuda(*args)
@@ -2314,13 +2324,14 @@ def dx_tc_cases(dev, seed):
         rec = {"kernel": "convkxk_dx", "route": route, "case": case,
                "dtype": "bfloat16", "x_shape": list(x_shape), "o": o,
                "padding": [list(p) for p in pad], "dilation": dil,
+               "stride": list(stride),
                "out_dtype": str(got.dtype).split(".")[-1],
                "max_abs_err": diff, "rel_err": rel, "ok": ok}
         out.append(rec)
-        log(f"[R1] convkxk_dx {route} bfloat16 {case:<10} x {x_shape} O {o} "
-            f"padding {pad} dilation {dil} out {rec['out_dtype']}: "
-            f"|kernel-plain| / max|plain| {rel:.3e} (gate {b_tol:g}) "
-            f"{'ok' if ok else 'MISMATCH'}")
+        log(f"[R1] convkxk_dx {route} bfloat16 {case:<11} x {x_shape} O {o} "
+            f"stride {stride} padding {pad} dilation {dil} out "
+            f"{rec['out_dtype']}: |kernel-plain| / max|plain| {rel:.3e} "
+            f"(gate {b_tol:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail("R1", f"{rec}")
     return out
@@ -2332,8 +2343,8 @@ def phase_resnet_kernels(dev, seed):
     and bfloat16; the epilogue and the fold at a strided 1x1, a strided
     3x3 and a stride-1 3x3; each call on the route ``gemm_route``,
     ``kxk_fwd_route``, ``dx_route`` and ``dw_route`` name (``want_route``:
-    the tensor cores in bf16, SIMT in float32, for a dx that folds and for
-    the 3x3 dx at stride 2) and the 3x3 tensor-core kernels' further cases
+    the tensor cores in bf16, SIMT in float32 and for a dx that folds) and
+    the 3x3 tensor-core kernels' further cases
     (``fwd_tc_cases``, ``dx_tc_cases``, ``dw_tc_cases``); max-pool ties on
     NHWC CUDA tensors."""
     results, worst = [], {}
@@ -2383,8 +2394,8 @@ def phase_resnet_kernels(dev, seed):
                     if not ok:
                         fail("R1", f"{rec}")
                     # each kernel row's error on the path's calls it takes:
-                    # a SIMT twin's float32 ones (R2) and the bf16 ones the
-                    # step leaves it (the stride-2 3x3 dx)
+                    # a SIMT twin's float32 ones (R2), a tensor-core row's
+                    # bf16 ones (R3)
                     key = kernel if route == "simt" else f"{kernel}_{route}"
                     if case == "path":
                         worst[key] = max(worst.get(key, 0.0), diff)
@@ -2573,15 +2584,15 @@ def phase_resnet_bench(dev, seed):
     256 x 224 in bf16 with the conv and pool knobs on
     (``PADDLE_TPU_POOL_FUSED`` set), lowp default then ``lowp=""``. In
     each: a warm-up step; the counted step of the main path (counts set to
-    0 just before, read just after: 108/16/16/16 conv, the 16 3x3 forwards
-    and the 16 weight gradients on the tensor cores, the 16 3x3 dx 13 on
-    the tensor-core forward (stride 1) and 3 on SIMT (stride 2), the 108
-    1x1 GEMMs 72 on the tensor-core forward and 36 on the tensor-core
-    weight gradient (``routes``), 1/1 pool); timed steps (imgs/s over all
-    of them); one profiled step (device busy time, idle share over its own
-    wall time, ``TC_IN_STEP``'s 101 tensor-core forwards, 52 tensor-core
-    weight-gradient GEMMs, 3 SIMT dx and no SIMT brgemm, 3x3 forward or
-    weight gradient in its own count, and in the lowp default each
+    0 just before, read just after: 108/16/16/16 conv, the 16 3x3
+    forwards, the 16 3x3 dx (stride 1 and 2) and the 16 weight gradients
+    on the tensor cores, the 108 1x1 GEMMs 72 on the tensor-core forward
+    and 36 on the tensor-core weight gradient (``routes``), 1/1 pool);
+    timed steps (imgs/s over all of them); one profiled step (device busy
+    time, idle share over its own wall time, ``TC_IN_STEP``'s 104
+    tensor-core forwards, 52 tensor-core weight-gradient GEMMs and no
+    SIMT brgemm, 3x3 forward, dx or weight gradient in its own count,
+    and in the lowp default each
     kernel's device time from its own launches). In the lowp default also
     a counted step with the pool knob off (no pool launch) and timed steps
     with the knob off and on in turns (off, on, on, off, ...). In
@@ -2667,8 +2678,8 @@ def phase_resnet_bench(dev, seed):
             if tc != TC_IN_STEP:
                 fail("R3", f"{label}: the profiled step ran the conv "
                            f"kernels {tc}, expected {TC_IN_STEP}: every 3x3 "
-                           f"forward and weight gradient, every stride-1 3x3 "
-                           f"dx and every 1x1 GEMM on the tensor cores")
+                           f"forward, dx and weight gradient and every 1x1 "
+                           f"GEMM on the tensor cores")
         log(f"[R3] {label}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
             f"launches a step {counts}; pool knob on: step "
             f"{', '.join(f'{t:.1f}' for t in wall)} ms, "
@@ -2736,11 +2747,13 @@ def library_call(name, shape, x, w, g):
 
 
 # R4's timed parts: (row, route, the ``conv_calls`` calls it launches on
-# that route) over the bf16 step's calls, and the three profiled sessions
-# that run them, in each of which no row's kernel symbol repeats. A
+# that route) over the bf16 step's calls, and the four profiled sessions
+# that run them, in each of which no part's kernel symbol repeats. A
 # tensor-core row shares its kernel with another (the 3x3 forward's runs
-# the 1x1 "nn" GEMMs and the stride-1 3x3 dx, the weight gradient's the
-# "tn" ones), so the step's own profile cannot time it apart
+# the 1x1 "nn" GEMMs and the 3x3 dx, the weight gradient's the "tn" ones),
+# so the step's own profile cannot time it apart. The route "dilate" runs
+# what the tensor-core dx runs before its kernel at stride 2 alone
+# (``conv_fused.dilate_cotangent``: a zero fill and a strided copy)
 R4_PARTS = {
     "brgemm_nn": ("brgemm", "simt", ("brgemm_fwd", "brgemm_dx")),
     "brgemm_tn": ("brgemm", "simt", ("brgemm_dw",)),
@@ -2751,19 +2764,28 @@ R4_PARTS = {
     "convkxk_tc": ("convkxk_tc", "tc", ("convkxk",)),
     "convkxk_dx_s1": ("convkxk_dx", "simt", ("convkxk_dx",)),
     "convkxk_dx_s2": ("convkxk_dx", "simt", ("convkxk_dx",)),
-    "convkxk_dx_tc": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
+    "convkxk_dx_tc_s1": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
+    "convkxk_dx_tc_s2": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
+    "convkxk_dx_tc_dilate": ("convkxk_dx_tc", "dilate", ("convkxk_dx",)),
     "convkxk_dw": ("convkxk_dw", "simt", ("convkxk_dw",)),
     "convkxk_dw_tc": ("convkxk_dw_tc", "tc", ("convkxk_dw",)),
 }
 # the conv strides whose calls a part takes (all where it is not named):
-# the tensor-core dx takes the stride-1 3x3 dx, and the SIMT dx is timed on
-# those and on the stride-2 ones apart
+# the dx is timed at stride 1 and at stride 2 apart on either route
 R4_STRIDES = {"convkxk_dx_s1": (1,), "convkxk_dx_s2": (2,),
-              "convkxk_dx_tc": (1,)}
+              "convkxk_dx_tc_s1": (1,), "convkxk_dx_tc_s2": (2,),
+              "convkxk_dx_tc_dilate": (2,)}
 R4_SESSIONS = (("brgemm_nn", "convkxk_tc", "convkxk_dw_tc", "convkxk",
                 "convkxk_dw", "convkxk_dx_s1"),
-               ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw"),
-               ("convkxk_dx_tc", "convkxk_dx_s2"))
+               ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw",
+                "convkxk_dx_tc_dilate"),
+               ("convkxk_dx_tc_s1", "convkxk_dx_s2"),
+               ("convkxk_dx_tc_s2",))
+# the kernel symbols a part's records are read by where they are not its
+# row's (``R_SYMBOLS``): the dilation's bf16 zero fill and its copy (the
+# lead-in's fill is float32, and no other part of its session copies)
+R4_PART_SYMBOLS = {"convkxk_dx_tc_dilate": ("FillFunctor<c10::BFloat16>",
+                                            "direct_copy_kernel")}
 
 
 # throwaway kernels launched at the start of each R4 session
@@ -2777,19 +2799,19 @@ def part_takes(part, call, stride):
         stride in R4_STRIDES.get(part, (stride,))
 
 
+def part_symbols(part):
+    """The kernel symbols whose records time the R4 part ``part``: one
+    record of each a call."""
+    return R4_PART_SYMBOLS.get(part, (R_SYMBOLS[R4_PARTS[part][0]],))
+
+
 def r4_row_parts(key):
-    """The R4 parts whose calls row ``key``'s numbers are means over: the
-    calls a bf16 step launches on the row's route (for the SIMT dx, its
-    stride-2 part alone) or, for a SIMT twin that the step launches
-    nowhere, every part of the row (timed on the step's calls)."""
-    mine = [p for p in R4_PARTS if R4_PARTS[p][0] == key]
-    if key in TC_TWIN or not routes(torch.bfloat16)[f"{key}_simt"]:
-        return mine
-    tc = [q for q in R4_PARTS if R4_PARTS[q][1] != "simt"]
-    strides = {sh[4] for sh in resnet50_conv_shapes()}
-    return [p for p in mine if not any(
-        part_takes(p, c, s) and part_takes(q, c, s)
-        for q in tc for c in R4_PARTS[p][2] for s in strides)]
+    """The R4 parts whose calls row ``key``'s numbers are means over: all
+    of the row's, so a tensor-core row's are the calls a bf16 step
+    launches on it (the dx's with the dilation at stride 2) and a SIMT
+    twin's, which the step launches nowhere, all the step's calls of its
+    kernel."""
+    return [p for p in R4_PARTS if R4_PARTS[p][0] == key]
 
 
 def r4_records(call, route, shape, batch, dev):
@@ -2816,41 +2838,39 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     events, ``iters`` calls a distinct shape, weighted by how often the
     step runs it). Every conv kernel's rows are timed on the step's own
     calls at batch 256 in bf16, each route through its launch function
-    (``R4_PARTS``, three profiled sessions, ``R4_SESSIONS``): the
+    (``R4_PARTS``, four profiled sessions, ``R4_SESSIONS``): the
     tensor-core rows, whose kernels the 1x1 and 3x3 convs and the 3x3 dx
-    share, and the SIMT twins. The bf16 step runs a SIMT kernel only for
-    the stride-2 3x3 dx, so that row's numbers are means over those 3
-    calls (``launches_per_step`` 3; the SIMT dx at stride 1 in
-    ``parts_ms``); the other twins' are over all the step's calls
-    (``launches_per_step`` 0, ``timed_on``), see ``r4_row_parts``. Each
-    tensor-core row also carries its twin's time on the same calls as
-    ``simt_ms``. Each tensor-core call is held against its plain version
-    on those inputs (``R_TOL``'s bf16 gates). A part fails unless its
-    session keeps every record."""
+    share, and the SIMT twins, which the bf16 step launches nowhere
+    (``launches_per_step`` 0, ``timed_on``). The tensor-core dx row's time
+    is its kernel's at stride 1 and 2 and the stride-2 calls' dilation of
+    g, each apart in ``parts_ms`` and ``parts`` (with each part's own
+    bound, plain and library means and worst error). Each tensor-core row
+    also carries its twin's time on the same calls as ``simt_ms``. Each
+    tensor-core call is held against its plain version on those inputs
+    (``R_TOL``'s bf16 gates). A part fails unless its session keeps every
+    record."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
     shapes = resnet50_conv_shapes()
     counts = {}
     for sh in shapes:
         counts[sh] = counts.get(sh, 0) + 1
-    acc = {k: {"bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bytes_bound": 0, "n": 0} for k in RESNET_KERNELS}
-    own = {k: r4_row_parts(k) for k in RESNET_KERNELS}
+    keys = ("bound_ms", "plain_ms", "library_ms")
+    acc = {k: dict(dict.fromkeys(keys, 0.0), bytes_bound=0, n=0)
+           for k in (*RESNET_KERNELS, *R4_PARTS)}
     parts = {p: [] for p in R4_PARTS}
     records = dict.fromkeys(R4_PARTS, 0)
-    by_shape, checked = {}, {}
+    by_shape, checked, part_err = {}, {}, {}
     for shape, mult in counts.items():
         x, w, g = r_inputs(shape, R3_BATCH, torch.bfloat16, dev, seed)
         nbytes, flops = conv_work(shape, R3_BATCH, 2)
         b_ms, by = bound_ms(nbytes, flops, torch.bfloat16)
         for name, (_, plain) in conv_calls(shape, x, w, g).items():
-            # the rows whose means this call is in: the tensor-core one
-            # the bf16 step takes, and its SIMT kernel's unless the step
-            # launches that kernel on other calls alone
-            rows = {R4_PARTS[p][0] for p in R4_PARTS
-                    if p in own[R4_PARTS[p][0]]
-                    and part_takes(p, name, shape[4])}
+            # the parts that launch this call; it is in their means and in
+            # their rows'
+            takers = [p for p in R4_PARTS if part_takes(p, name, shape[4])]
             t_plain = time_ms(plain, [()], iters)
             t_lib = time_ms(library_call(name, shape, x, w, g), [()], iters)
-            for k in rows:
+            for k in {R4_PARTS[p][0] for p in takers}.union(takers):
                 a = acc[k]
                 a["n"] += mult
                 a["bound_ms"] += mult * b_ms
@@ -2858,9 +2878,15 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                 a["plain_ms"] += mult * t_plain
                 a["library_ms"] += mult * t_lib
         for part, (row, route, calls) in R4_PARTS.items():
-            on = conv_calls(shape, x, w, g, route=dict.fromkeys(calls, route))
+            on = conv_calls(shape, x, w, g, route=None if route == "dilate"
+                            else dict.fromkeys(calls, route))
             for call in calls:
                 if call not in on or not part_takes(part, call, shape[4]):
+                    continue
+                if route == "dilate":
+                    parts[part] += [lambda g=g, s=shape[4]:
+                                    cf.dilate_cotangent(g, (s, s))] * mult
+                    records[part] += mult
                     continue
                 parts[part] += [on[call][0]] * mult
                 records[part] += mult * r4_records(call, route, shape,
@@ -2879,6 +2905,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                                f"{R3_BATCH}: |kernel-plain| / max|plain| "
                                f"{rel:.3e} against its {tol:g} gate")
                 checked[row] = max(checked.get(row, 0.0), rel)
+                part_err[part] = max(part_err.get(part, 0.0), rel)
                 del got, ref
                 if row.startswith("brgemm"):
                     # each 1x1 tensor-core call by shape, launch cost in
@@ -2905,26 +2932,28 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
         run()
         # the sessions are retried until every part's records are all
         # there: its time is their sum
-        expect = {R_SYMBOLS[R4_PARTS[p][0]]: records[p] for p in session}
+        expect = {sym: records[p] for p in session for sym in part_symbols(p)}
         _, rows, _ = profiled(run, f"R4's parts {session}", expect=expect)
         for p in session:
-            sym = R_SYMBOLS[R4_PARTS[p][0]]
-            got = [r for r in rows if sym in r[0]]
-            seen = sum(r[1] for r in got)
-            if seen != records[p]:
-                fail("R4", f"{p}: the last of {PROFILE_SESSIONS} sessions "
-                           f"kept {seen} of {records[p]} {sym} records")
-            totals[p] = sum(r[2] for r in got)
+            totals[p] = 0.0
+            for sym in part_symbols(p):
+                got = [r for r in rows if sym in r[0]]
+                seen = sum(r[1] for r in got)
+                if seen != records[p]:
+                    fail("R4", f"{p}: the last of {PROFILE_SESSIONS} "
+                               f"sessions kept {seen} of {records[p]} {sym} "
+                               f"records")
+                totals[p] += sum(r[2] for r in got)
             if not totals[p]:
                 fail("R4", f"the session of {p} recorded no time for a "
-                           f"kernel of {sym} it launched")
-    n_part = {p: len(fns) for p, fns in parts.items()}
+                           f"kernel of {part_symbols(p)} it launched")
     del parts
     torch.cuda.empty_cache()
     numbers = {}
     in_step = step_rec["kernels_in_step"]
     step = routes(torch.bfloat16)
-    for key, a in acc.items():
+    for key in RESNET_KERNELS:
+        a = acc[key]
         # the bf16 step's own launches of this row, and the calls its
         # numbers are means over: those, or all the step's calls of a
         # SIMT twin the step launches nowhere
@@ -2933,8 +2962,8 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
         if a["n"] != calls:
             fail("R4", f"{key}: {a['n']} calls of its parts in the shape "
                        f"table, {calls} in a bf16 step")
-        mine = [p for p, (row, _, _) in R4_PARTS.items() if row == key]
-        ms = sum(totals[p] for p in own[key]) / calls
+        mine = r4_row_parts(key)
+        ms = sum(totals[p] for p in mine) / calls
         rec = {"ms": ms, "launches_per_step": launches,
                "bound_ms": a["bound_ms"] / calls,
                "bound_by": "bytes" if a["bytes_bound"] * 2 > calls
@@ -2945,7 +2974,14 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                # the two rows of one tensor-core kernel)
                "device_ms_in_step": in_step[key]["device_ms"],
                "profiled_kernels_in_step": in_step[key]["count"],
-               "parts_ms": {p: totals[p] / n_part[p] for p in mine}}
+               "parts_ms": {p: totals[p] / acc[p]["n"] for p in mine},
+               # each part's own calls: their count, strides, means and
+               # worst error at batch 256 (a tensor-core part's)
+               "parts": {p: dict(
+                   {k: acc[p][k] / acc[p]["n"] for k in keys},
+                   calls=acc[p]["n"], route=R4_PARTS[p][1],
+                   strides=list(R4_STRIDES.get(p, (1, 2))),
+                   rel_err_at_batch=part_err.get(p)) for p in mine}}
         if not launches:
             rec["timed_on"] = "bf16, the step's calls, on the SIMT route"
         if key in by_shape:
@@ -2957,9 +2993,11 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                         f"(CUDA events) against a {r['bound_ms']:.4f} ms "
                         f"bound")
         if key in TC_TWIN:
-            twin = [p for p, (row, _, cs) in R4_PARTS.items()
-                    if row == TC_TWIN[key] and cs == R4_PARTS[key][2]
-                    and R4_STRIDES.get(p) == R4_STRIDES.get(key)]
+            # the SIMT parts over the same calls as this row's kernel parts
+            twin = [q for p in mine if R4_PARTS[p][1] != "dilate"
+                    for q, (row, _, cs) in R4_PARTS.items()
+                    if row == TC_TWIN[key] and cs == R4_PARTS[p][2]
+                    and R4_STRIDES.get(q) == R4_STRIDES.get(p)]
             rec["simt_ms"] = sum(totals[p] for p in twin) / calls
             rec["rel_err_at_batch"] = checked[key]
         numbers[key] = rec
@@ -2974,16 +3012,29 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                f"; worst |kernel-plain| / max|plain| on them "
                f"{rec['rel_err_at_batch']:.3e}" if key in TC_TWIN else ""))
         if len(mine) > 1:
-            log(f"[R4]   {key} by part: " + ", ".join(
-                f"{p} {rec['parts_ms'][p]:.3f} ms a call over {n_part[p]}"
-                for p in mine))
+            for p in mine:
+                q = rec["parts"][p]
+                log(f"[R4]   {key} part {p} ({q['route']}, strides "
+                    f"{q['strides']}): {rec['parts_ms'][p]:.4f} ms a call "
+                    f"over "
+                    f"{q['calls']}; bound {q['bound_ms']:.4f} ms, plain "
+                    f"{q['plain_ms']:.3f} ms, library {q['library_ms']:.3f}"
+                    f" ms a call on them"
+                    + ("" if q["rel_err_at_batch"] is None else
+                       f"; worst |kernel-plain| / max|plain| "
+                       f"{q['rel_err_at_batch']:.3e}"))
+
+    def kernel_ms(row):
+        # a tensor-core row's kernel time over the bf16 step's calls
+        return sum(totals[p] for p in r4_row_parts(row)
+                   if R4_PARTS[p][1] != "dilate")
+
     for sym in (FWD_TC_KERNEL, DW_TC_KERNEL):
         rows = [r for r in TC_KERNEL if TC_KERNEL[r] == sym]
         log(f"[R4] {sym}: {in_step[rows[0]]['device_ms']:.3f} ms over "
             f"{in_step[rows[0]]['count']} records in the profiled step; "
-            f"timed apart: " + ", ".join(
-                f"{r} {numbers[r]['ms'] * numbers[r]['launches_per_step']:.3f}"
-                f" ms" for r in rows))
+            f"timed apart (the dx without its dilation): " + ", ".join(
+                f"{r} {kernel_ms(r):.3f} ms" for r in rows))
     return numbers
 
 
@@ -3993,12 +4044,12 @@ def main(argv=None):
             launches[key] += b1_launches[key]
     launches["layer_norm"] = report["layer_norm_numbers"]["launches"]
     # the conv and pool kernels: the counted step of the bench (lowp
-    # default), where every 3x3 forward and weight gradient, every
-    # stride-1 3x3 dx and every 1x1 GEMM takes the tensor cores and the
-    # stride-2 3x3 dx SIMT; the SIMT brgemm, forward, dx and weight
-    # gradient: R2's float32 steps too, and brgemm and the SIMT forward
-    # also the (float32) eval forward; seqpool: the classifier's counted
-    # unfused run
+    # default), where every 3x3 forward, dx and weight gradient and every
+    # 1x1 GEMM takes the tensor cores; the SIMT brgemm, forward, dx and
+    # weight gradient: R2's float32 steps (the SIMT dx there alone), and
+    # brgemm and the SIMT forward also the (float32) eval forward, each
+    # path's count in ``launches_by_path``; seqpool: the classifier's
+    # counted unfused run
     launches.update(r_main["launches"])
     route_paths = {
         "resnet_f32_train": report["resnet_train"]["launches"],

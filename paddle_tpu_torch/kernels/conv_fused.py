@@ -36,12 +36,14 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
   Neither gives way to the other: ``convkxk_dw_launch`` launches the one
   it is named, or raises.
 - The input gradient has two kernels, chosen by the pure rule
-  ``dx_route``: a stride-1 dx that folds nothing is the forward conv of g
-  with the taps flipped and C and O swapped (``dx_geometry``), so for
-  bf16 with C and O multiples of 64 at a 16-byte aligned g it runs on the
-  tensor-core forward ``csrc/conv_kxk_fwd_tc.cu``; the rest (stride 2, a
-  fold, float32) runs ``conv_kxk_dx`` of ``csrc/conv_kxk.cu`` (float32
-  FMAs). ``convkxk_dx_launch`` launches the one it is named, or raises.
+  ``dx_route``: a dx that folds nothing is the stride-1 forward conv of g
+  with the taps flipped and C and O swapped (``dx_geometry``), g first
+  dilated by the conv's stride as the reference dilates it
+  (``dilate_cotangent``), so for bf16 with C and O multiples of 64 at a
+  16-byte aligned g it runs on the tensor-core forward
+  ``csrc/conv_kxk_fwd_tc.cu``, at stride 1 and 2 alike; the rest (a fold,
+  float32) runs ``conv_kxk_dx`` of ``csrc/conv_kxk.cu`` (float32 FMAs).
+  ``convkxk_dx_launch`` launches the one it is named, or raises.
 
 The plain versions are the same functions in PyTorch: a float32
 ``F.conv2d`` (and its gradients through autograd) on the padded input, the
@@ -252,38 +254,53 @@ def _fold_checks(g, mask, scale, dev, o):
 
 def dx_route(dtype, c, o, aligned, stride, folded):
     """The input-gradient kernel a CUDA call takes, by a fixed rule:
-    ``"tc"`` (``csrc/conv_kxk_fwd_tc.cu``, wgmma, at ``dx_geometry``) for a
-    stride-(1, 1) dx that folds nothing (``folded``: a relu mask or a scale
-    is given) with bfloat16 g and w (``dtype``: theirs, None when they
-    differ or when dx is to be neither float32 nor bfloat16), C and O
-    multiples of 64 and g at a 16-byte aligned base (``aligned``); the
-    forward conv the dx becomes has O input and C output channels, so the
-    rule is ``tiles.tc_fits(dtype, o, c, aligned)``. ``"simt"``
-    (``conv_kxk_dx`` of ``csrc/conv_kxk.cu``) for everything else: a
-    stride of 2, whose cotangent has zeros between its rows and columns; a
-    fold, which the forward kernel does not apply to its input; float32,
-    whose 1e-4 backward gate no tensor-core input type meets; and other
-    channel counts."""
-    if tuple(stride) != (1, 1) or folded:
+    ``"tc"`` (``csrc/conv_kxk_fwd_tc.cu``, wgmma, at ``dx_geometry`` over
+    ``dilate_cotangent``'s g) for a dx that folds nothing (``folded``: a
+    relu mask or a scale is given) with bfloat16 g and w (``dtype``:
+    theirs, None when they differ or when dx is to be neither float32 nor
+    bfloat16), C and O multiples of 64 and g at a 16-byte aligned base
+    (``aligned``), at any ``stride``; the forward conv the dx becomes has
+    O input and C output channels, so the rule is ``tiles.tc_fits(dtype,
+    o, c, aligned)``. ``"simt"`` (``conv_kxk_dx`` of ``csrc/conv_kxk.cu``)
+    for everything else: a fold, which the forward kernel does not apply
+    to its input; float32, whose 1e-4 backward gate no tensor-core input
+    type meets; and other channel counts."""
+    if folded:
         return "simt"
     return "tc" if tiles.tc_fits(dtype, o, c, aligned) else "simt"
 
 
+def dilate_cotangent(g, stride):
+    """g [N, OH, OW, O] with ``stride - 1`` zeros between its rows and
+    its columns, as the reference pads it inside (``lax.pad``'s interior
+    padding): g itself at stride (1, 1), else a zero tensor [N, (OH - 1) *
+    sh + 1, (OW - 1) * sw + 1, O] in g's dtype on g's device with g at
+    every sh-th row and sw-th column. A strided dx is the stride-1 dx of
+    this tensor; the pads at its edges stay implicit (a tap past either
+    edge reads 0)."""
+    sh, sw = stride
+    if (sh, sw) == (1, 1):
+        return g
+    n, oh, ow, o = g.shape
+    out = g.new_zeros((n, (oh - 1) * sh + 1, (ow - 1) * sw + 1, o))
+    out[:, ::sh, ::sw] = g
+    return out
+
+
 def dx_geometry(x_shape, w_shape, stride, padding, dilation):
-    """The Geo (15 ints, as ``geometry``) of the forward conv that a
-    stride-1 dx is: the cotangent [N, OH, OW, O] as x, the weight's taps
-    flipped with C and O swapped as w, output [N, H, W, C]; the low
-    padding ``(k - 1) * d - p0`` as the reference pads g (a tap past
-    either edge of g reads 0, so the high padding follows from the output
-    size). Raises at another stride: a strided dx is no forward conv of g
-    without zeros between its outputs."""
-    if tuple(stride) != (1, 1):
-        raise ValueError(f"a dx is a forward conv at stride (1, 1), not "
+    """The Geo (15 ints, as ``geometry``) of the stride-1 forward conv
+    that a dx is: ``dilate_cotangent``'s g [N, (OH - 1) * sh + 1, (OW - 1)
+    * sw + 1, O] as x, the weight's taps flipped with C and O swapped as
+    w, output [N, H, W, C]; the low padding ``(k - 1) * d - p0`` as the
+    reference pads g (a tap past either edge of g reads 0, so the high
+    padding follows from the output size). Raises on a stride below 1."""
+    if min(stride) < 1:
+        raise ValueError(f"a dx takes strides of 1 or more, not "
                          f"{tuple(stride)}")
-    n, h, wd, c, o, kh, kw, oh, ow, _, _, ph0, pw0, dh, dw = geometry(
+    n, h, wd, c, o, kh, kw, oh, ow, sh, sw, ph0, pw0, dh, dw = geometry(
         x_shape, w_shape, stride, padding, dilation)
-    return (n, oh, ow, o, c, kh, kw, h, wd, 1, 1, (kh - 1) * dh - ph0,
-            (kw - 1) * dw - pw0, dh, dw)
+    return (n, (oh - 1) * sh + 1, (ow - 1) * sw + 1, o, c, kh, kw, h, wd, 1,
+            1, (kh - 1) * dh - ph0, (kw - 1) * dw - pw0, dh, dw)
 
 
 def _dx_facts(g, mask, scale, w, x_dtype):
@@ -302,11 +319,12 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
     """Launch the input-gradient kernel of ``route`` (``"tc"`` or
     ``"simt"``) on the inputs ``convkxk_dx_cuda`` takes; count nothing.
     Returns dx [N, H, W, C] in ``x_dtype``. Raises on what the kernel does
-    not take and on a launch error: the tensor-core route refuses a fold,
-    a stride other than (1, 1) and operands other than bfloat16 before any
-    launch, and its C entry (which then computes nothing) channels that
-    are not multiples of 64 and a misaligned g. ``facts``: this call's
-    ``_dx_facts``, where the caller has them."""
+    not take and on a launch error: the tensor-core route refuses a fold
+    and operands other than bfloat16 before any launch, at every stride,
+    and its C entry (which then computes nothing) channels that are not
+    multiples of 64 and a misaligned g; it dilates g first
+    (``dilate_cotangent``) where the stride is above 1. ``facts``: this
+    call's ``_dx_facts``, where the caller has them."""
     dev = g.device
     geo = geometry(x_shape, w.shape, stride, padding, dilation)
     n, h, wd, c, o, kh, kw, oh, ow = geo[:9]
@@ -322,9 +340,10 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
         if folded:
             raise ValueError("conv_kxk_fwd_tc computes a dx that folds "
                              "nothing, not one with a mask or a scale")
-        geo = dx_geometry(x_shape, w.shape, stride, padding, dilation)
         if dtype != torch.bfloat16:
             raise TypeError(f"conv_kxk_fwd_tc takes bfloat16, not {g.dtype}")
+        geo = dx_geometry(x_shape, w.shape, stride, padding, dilation)
+        g = dilate_cotangent(g, stride)
         # [KH, KW, O, C] with the taps flipped: the forward's [KH, KW, C, O]
         # for a conv of O input and C output channels
         wk = w.flip(2, 3).permute(2, 3, 0, 1).contiguous()

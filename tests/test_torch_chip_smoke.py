@@ -218,9 +218,9 @@ def test_profile_symbols_tell_the_forward_routes_apart():
     for other in ("convkxk_dx", "convkxk_dw", "convkxk_dw_tc", "brgemm"):
         assert chip_smoke.R_SYMBOLS[other] not in fwd_name
     tc_in_step = chip_smoke.TC_IN_STEP
-    assert tc_in_step == {kern: 16 + 13 + 72, simt: 0,
+    assert tc_in_step == {kern: 16 + 16 + 72, simt: 0,
                           chip_smoke.DW_TC_KERNEL: 16 + 36,
-                          chip_smoke.R_SYMBOLS["convkxk_dx"]: 3,
+                          chip_smoke.R_SYMBOLS["convkxk_dx"]: 0,
                           chip_smoke.R_SYMBOLS["convkxk_dw"]: 0,
                           chip_smoke.R_SYMBOLS["brgemm"]: 0}
 
@@ -354,7 +354,7 @@ def test_resnet_3x3_shapes_take_the_route_the_script_asserts():
 
 def test_kernels_line_has_the_tensor_core_dx_row():
     """The 20th row: #7's tensor-core route, the accepted tensor-core
-    forward's source at the geometry of the forward conv a stride-1 dx is,
+    forward's source at the geometry of the stride-1 forward conv a dx is,
     named after the counter of the wrapper that picks it, with its own
     part in R4 and the forward's kernel symbol in the profile."""
     from paddle_tpu_torch.kernels import conv_fused as cf
@@ -374,9 +374,9 @@ def test_kernels_line_has_the_tensor_core_dx_row():
 
 
 @pytest.mark.parametrize("dtype,base,table,tc,simt", [
-    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 13, 3),
+    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 16, 0),
     (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 16),
-    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 13, 3),
+    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 16, 0),
     (torch.bfloat16, "R_EVAL", "TC_EVAL", 0, 0),
 ], ids=["bf16_step", "f32_step", "bf16_pool_off", "eval"])
 def test_dx_routes_split_the_3x3_dx_by_dtype_and_stride(dtype, base, table,
@@ -390,36 +390,43 @@ def test_dx_routes_split_the_3x3_dx_by_dtype_and_stride(dtype, base, table,
 
 
 def test_resnet_3x3_dx_take_the_route_the_script_asserts():
-    """R1, R3 and R4 assert ResNet-50's 13 stride-1 3x3 dx on the tensor
-    cores in bf16 and the 3 stride-2 ones, and every float32 one, on SIMT:
-    the port's rule says so for every 3x3 shape of the step; the further
-    R1 cases are bf16 tc calls that cover a dilation, a negative low pad
-    of g with C != O, an M that is no multiple of the 128-row tile and a
-    float32 dx."""
+    """R1, R3 and R4 assert ResNet-50's 16 3x3 dx, the 13 stride-1 and the
+    3 stride-2 ones, on the tensor cores in bf16 and every float32 one and
+    every one that folds on SIMT: the port's rule says so for every 3x3
+    shape of the step; the further R1 cases are bf16 tc calls that cover
+    a dilation, a negative low pad of g with C != O, an M that is no
+    multiple of the 128-row tile and a float32 dx, and at stride 2 a
+    ragged M, an odd H with C != O, a stride of (2, 1) and a float32 dx."""
     from paddle_tpu_torch.kernels.conv_fused import dx_geometry, dx_route
     strides = [s for h, c, o, k, s in chip_smoke.resnet50_conv_shapes()
                if k == 3]
-    assert strides.count(1) == chip_smoke.TC_PER_STEP["convkxk_dx_tc"] == 13
+    assert (strides.count(1), strides.count(2)) == (13, 3)
+    assert len(strides) == chip_smoke.TC_PER_STEP["convkxk_dx_tc"] == 16
     for h, c, o, k, s in chip_smoke.resnet50_conv_shapes():
         if k == 3:
             assert dx_route(torch.bfloat16, c, o, True, (s, s), False) == \
-                ("tc" if s == 1 else "simt")
+                "tc"
             assert dx_route(torch.float32, c, o, True, (s, s), False) == \
                 "simt"
             assert dx_route(torch.bfloat16, c, o, True, (s, s), True) == \
                 "simt"
     cases = {c[0]: c for c in chip_smoke.R1_DX_TC_CASES}
     geos = {}
-    for name, (h, wd, c), o, batch, pad, dil, _ in cases.values():
-        assert dx_route(torch.bfloat16, c, o, True, (1, 1), False) == "tc"
-        geos[name] = dx_geometry((batch, h, wd, c), (o, c, 3, 3), (1, 1),
+    for name, (h, wd, c), o, batch, pad, dil, _, stride in cases.values():
+        assert dx_route(torch.bfloat16, c, o, True, stride, False) == "tc"
+        geos[name] = dx_geometry((batch, h, wd, c), (o, c, 3, 3), stride,
                                  pad, (dil, dil))
     assert cases["dilated"][5] == 2
     assert geos["uneven_pad"][11] < 0 and cases["uneven_pad"][1][2] != \
         cases["uneven_pad"][2]
-    n, h, wd = geos["ragged_m"][0], geos["ragged_m"][7], geos["ragged_m"][8]
-    assert n * h * wd % 128 != 0
-    assert cases["f32_out"][6] == torch.float32
+    for name in ("ragged_m", "s2_ragged_m"):
+        n, h, wd = geos[name][0], geos[name][7], geos[name][8]
+        assert n * h * wd % 128 != 0
+    assert cases["f32_out"][6] == cases["s2_f32_out"][6] == torch.float32
+    assert cases["s2_odd_h"][1][0] % 2 == 1 and cases["s2_odd_h"][1][2] != \
+        cases["s2_odd_h"][2]
+    assert cases["s21"][7] == (2, 1)
+    assert {c[7] for c in cases.values()} == {(1, 1), (2, 2), (2, 1)}
 
 
 def test_kernels_line_has_the_brgemm_tensor_core_rows():
@@ -488,8 +495,8 @@ def test_conv_calls_take_the_route_the_script_asserts(monkeypatch, dtype):
     """R1's ``want_route`` is what the port's wrappers pick (their rules
     and counters, the launches faked) for every call ``conv_calls`` makes
     at every distinct ResNet-50 shape, with and without the epilogue and
-    the fold: in bf16 a dx that folds and a 3x3 dx at stride 2 stay on
-    SIMT, every other call takes the tensor cores."""
+    the fold: in bf16 a dx that folds stays on SIMT, every other call (the
+    3x3 dx at stride 2 too) takes the tensor cores."""
     fake = _FakeLaunches(monkeypatch)
     for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
         x, w, g = chip_smoke.r_inputs(shape, 1, dtype, "cpu", 0)
@@ -519,8 +526,8 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
     through the wrappers (launches faked) counts ``routes(bf16)``, every
     1x1 forward and dx on the tensor-core forward (no conv of the step
     folds: BatchNorm runs apart in training) and every 1x1 weight
-    gradient on the tensor-core weight gradient, the 13 stride-1 3x3 dx on
-    the tensor-core forward and the 3 stride-2 ones on SIMT; the pure bf16
+    gradient on the tensor-core weight gradient, the 16 3x3 dx (13 at
+    stride 1, 3 at stride 2) on the tensor-core forward; the pure bf16
     model's eval forward counts ``routes(EVAL_DTYPE, R_EVAL)``, all on
     SIMT."""
     from paddle_tpu_torch import bench
@@ -549,7 +556,7 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
     bench.train_step(model, params, opt, state, x, labels)
     counts = chip_smoke.r_counts()
     assert routed(counts) == routed(chip_smoke.routes(torch.bfloat16))
-    assert (counts["convkxk_dx_tc"], counts["convkxk_dx_simt"]) == (13, 3)
+    assert (counts["convkxk_dx_tc"], counts["convkxk_dx_simt"]) == (16, 0)
     if not lowp:
         model.eval()
         chip_smoke.zero_r_counts()
@@ -562,15 +569,16 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
 def test_r4_parts_time_every_routed_row_apart():
     """At every ResNet-50 shape, each call of ``conv_calls`` is launched in
     exactly one SIMT part and, where the bf16 step takes the tensor cores,
-    in exactly one part of that route: the SIMT dx at stride 1 and at
-    stride 2 apart, in different sessions. No kernel symbol repeats
-    within a session; every tensor-core row has a SIMT part over the same
-    calls; every ResNet kernel row has a part."""
+    in exactly one kernel part of that route: the dx at stride 1 and at
+    stride 2 apart on either route, in different sessions; the stride-2
+    tensor-core dx's dilation of g in a part of its own. No kernel symbol
+    repeats within a session; every tensor-core part has a SIMT part over
+    the same calls; every ResNet kernel row has a part."""
     parts, sessions = chip_smoke.R4_PARTS, chip_smoke.R4_SESSIONS
     assert sorted(p for s in sessions for p in s) == sorted(parts)
-    assert len(sessions) == 3
+    assert len(sessions) == 4
     for session in sessions:
-        syms = [chip_smoke.R_SYMBOLS[parts[p][0]] for p in session]
+        syms = [sym for p in session for sym in chip_smoke.part_symbols(p)]
         assert all(a not in b for a in syms for b in syms if a is not b)
     for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
         for call in (("brgemm_fwd", "brgemm_dx", "brgemm_dw")
@@ -581,7 +589,7 @@ def test_r4_parts_time_every_routed_row_apart():
                       if chip_smoke.part_takes(p, call, shape[4])]
             simt = [p for p in takers if parts[p][1] == "simt"]
             assert len(simt) == 1 and parts[simt[0]][0] == kernel
-            tc = [p for p in takers if parts[p][1] != "simt"]
+            tc = [p for p in takers if parts[p][1] not in ("simt", "dilate")]
             want = chip_smoke.want_route(call, torch.bfloat16, False,
                                          shape[4])
             assert [parts[p][1] for p in tc] == \
@@ -591,22 +599,44 @@ def test_r4_parts_time_every_routed_row_apart():
                 assert parts[p][2] == parts[simt[0]][2]
                 assert chip_smoke.R4_STRIDES.get(p) == \
                     chip_smoke.R4_STRIDES.get(simt[0])
-    dx_s1, dx_s2 = (next(p for p in parts if parts[p][0] == "convkxk_dx"
-                         and chip_smoke.part_takes(p, "convkxk_dx", s))
-                    for s in (1, 2))
-    assert dx_s1 != dx_s2
-    assert not any(dx_s1 in s and dx_s2 in s for s in sessions)
+            dilate = [p for p in takers if parts[p][1] == "dilate"]
+            assert len(dilate) == (call == "convkxk_dx" and shape[4] == 2)
+            for p in dilate:
+                assert parts[p][0] == parts[tc[0]][0] == "convkxk_dx_tc"
+    for route in ("simt", "tc"):
+        dx_s1, dx_s2 = (next(p for p in parts
+                             if parts[p][1] == route
+                             and parts[p][0].startswith("convkxk_dx")
+                             and chip_smoke.part_takes(p, "convkxk_dx", s))
+                        for s in (1, 2))
+        assert dx_s1 != dx_s2
+        assert not any(dx_s1 in s and dx_s2 in s for s in sessions)
     assert set(r for r, _, _ in parts.values()) == \
         set(chip_smoke.RESNET_KERNELS)
+
+
+def test_r4_dilation_part_reads_the_fill_and_the_copy_apart():
+    """The dilation's part is read by a bf16 fill and a copy, symbols no
+    other part of its session holds and the lead-in's float32 fill does
+    not match; every other part is read by its row's symbol."""
+    sym = chip_smoke.part_symbols("convkxk_dx_tc_dilate")
+    assert sym == ("FillFunctor<c10::BFloat16>", "direct_copy_kernel")
+    lead_in = ("void at::native::vectorized_elementwise_kernel<4, "
+               "at::native::FillFunctor<float>, std::array<char*, 1ul> >")
+    assert not any(s in lead_in for s in sym)
+    for p, (row, _, _) in chip_smoke.R4_PARTS.items():
+        if p != "convkxk_dx_tc_dilate":
+            assert chip_smoke.part_symbols(p) == (chip_smoke.R_SYMBOLS[row],)
 
 
 @pytest.mark.parametrize("key", chip_smoke.RESNET_KERNELS)
 def test_r4_rows_are_means_over_the_calls_the_step_launches_on_them(key):
     """R4's numbers of a row are means over the calls of its parts
-    (``r4_row_parts``) at every ResNet-50 conv: the calls a bf16 step
-    launches on the row's route, as many as its launches there (for the
-    SIMT dx the 3 stride-2 calls alone), or, for a SIMT twin the step
-    launches nowhere, all the step's calls of its kernel."""
+    (``r4_row_parts``, all of the row's) at every ResNet-50 conv: the
+    calls a bf16 step launches on the row's route, as many as its
+    launches there (for the tensor-core dx the 13 stride-1 and the 3
+    stride-2 calls), or, for a SIMT twin the step launches nowhere (the
+    SIMT dx too), all the step's calls of its kernel."""
     step = chip_smoke.routes(torch.bfloat16)
     launches = step[key] if key in chip_smoke.TC_TWIN else \
         step[f"{key}_simt"]
@@ -620,12 +650,11 @@ def test_r4_rows_are_means_over_the_calls_the_step_launches_on_them(key):
     assert len(taken) == (launches or chip_smoke.R_PER_STEP[key])
     mine = [p for p, (row, _, _) in chip_smoke.R4_PARTS.items()
             if row == key]
-    if key == "convkxk_dx":
-        assert launches == 3 and parts != mine
-        assert {(shape[3], shape[4], call) for shape, call in taken} == \
-            {(3, 2, "convkxk_dx")}
-    else:
-        assert parts == mine
+    assert parts == mine
+    if key.startswith("convkxk_dx"):
+        assert launches == (16 if key == "convkxk_dx_tc" else 0)
+        assert {(shape[3], shape[4]) for shape, call in taken} == \
+            {(3, 1), (3, 2)}
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [

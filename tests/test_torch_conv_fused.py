@@ -9,10 +9,11 @@ kernels (interpret mode), on the CPU.
   and weight gradient, and a bf16 1x1 GEMM, to the tensor-core kernels;
   ``tiles.gemm_geometry``: at its 1x1 geometry the 3x3 kernels' plain
   versions compute the JAX ``brgemm``.
-- ``conv_fused.dx_route`` and ``dx_geometry`` (#7): the rule that sends a
-  bf16 stride-1 dx that folds nothing to the tensor-core forward, and the
-  geometry it runs there: the forward conv of g with the taps flipped
-  and C and O swapped, whose plain version computes the JAX
+- ``conv_fused.dx_route``, ``dilate_cotangent`` and ``dx_geometry`` (#7):
+  the rule that sends a bf16 dx that folds nothing to the tensor-core
+  forward, at stride 1 and 2, and the geometry it runs there: the forward
+  conv of g (dilated by the stride as the reference dilates it) with the
+  taps flipped and C and O swapped, whose plain version computes the JAX
   ``_convkxk_dx``.
 - ``conv_fused.conv2d_bn_act`` (#4 for 1x1, #6-#8 for KxK): the output and
   the gradients of x, w, scale, bias and residual over the grid of
@@ -410,7 +411,7 @@ def test_brgemm_on_cpu_counts_no_route_launch():
     assert counts() == before
 
 
-# -- #7's routes: a stride-1 dx without a fold on the tensor-core forward -----
+# -- #7's routes: a dx without a fold on the tensor-core forward -------------
 
 # (id, dtype, c, o, aligned, stride, folded, route)
 DX_ROUTE_CASES = [
@@ -418,8 +419,8 @@ DX_ROUTE_CASES = [
     ("bf16_512", torch.bfloat16, 512, 512, True, (1, 1), False, "tc"),
     ("bf16_c64_o192", torch.bfloat16, 64, 192, True, (1, 1), False, "tc"),
     ("bf16_c192_o64", torch.bfloat16, 192, 64, True, (1, 1), False, "tc"),
-    ("stride2", torch.bfloat16, 64, 64, True, (2, 2), False, "simt"),
-    ("stride_1x2", torch.bfloat16, 64, 64, True, (1, 2), False, "simt"),
+    ("stride2", torch.bfloat16, 64, 64, True, (2, 2), False, "tc"),
+    ("stride_1x2", torch.bfloat16, 64, 64, True, (1, 2), False, "tc"),
     ("folded", torch.bfloat16, 64, 64, True, (1, 1), True, "simt"),
     ("stride2_folded", torch.bfloat16, 64, 64, True, (2, 2), True, "simt"),
     ("f32", torch.float32, 64, 64, True, (1, 1), False, "simt"),
@@ -435,8 +436,8 @@ DX_ROUTE_CASES = [
 def test_dx_route_takes_the_tensor_cores_only_where_they_fit(case):
     _, dtype, c, o, aligned, stride, folded, route = case
     assert pcf.dx_route(dtype, c, o, aligned, stride, folded) == route
-    want = "tc" if ptiles.tc_fits(dtype, o, c, aligned) and \
-        stride == (1, 1) and not folded else "simt"
+    want = "tc" if ptiles.tc_fits(dtype, o, c, aligned) and not folded \
+        else "simt"
     assert route == want
 
 
@@ -448,7 +449,7 @@ DX_CALL_CASES = [
     ("bf16_f32_dx", torch.bfloat16, torch.bfloat16, torch.float32, 1, None,
      False, "tc"),
     ("stride2", torch.bfloat16, torch.bfloat16, torch.bfloat16, 2, None,
-     False, "simt"),
+     False, "tc"),
     ("mask", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, "mask",
      False, "simt"),
     ("scale", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, "scale",
@@ -499,61 +500,121 @@ def test_dx_cuda_reads_the_rules_facts_of_each_call(case, monkeypatch):
         (1, int(route == "tc"), int(route == "simt"))
 
 
-# (x_shape, w_shape, padding, dilation): ResNet-50's four stride-1 3x3 dx at
-# batch 256, a dilated one and an uneven padding with a negative low pad
+# (x_shape, w_shape, padding, dilation, stride): ResNet-50's four stride-1
+# 3x3 dx at batch 256, a dilated one, an uneven padding with a negative low
+# pad, and ResNet-50's three stride-2 3x3 dx at batch 256 (H = 56, 28, 14:
+# even, so the reference's high pad of the dilated g is 2)
 DX_GEO_CASES = [
-    ((256, 56, 56, 64), (64, 64, 3, 3), ((1, 1), (1, 1)), (1, 1)),
-    ((256, 28, 28, 128), (128, 128, 3, 3), ((1, 1), (1, 1)), (1, 1)),
-    ((256, 14, 14, 256), (256, 256, 3, 3), ((1, 1), (1, 1)), (1, 1)),
-    ((256, 7, 7, 512), (512, 512, 3, 3), ((1, 1), (1, 1)), (1, 1)),
-    ((2, 9, 9, 16), (32, 16, 3, 3), ((2, 2), (2, 2)), (2, 2)),
-    ((2, 9, 7, 16), (32, 16, 3, 3), ((3, 0), (0, 2)), (1, 1)),
+    ((256, 56, 56, 64), (64, 64, 3, 3), ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    ((256, 28, 28, 128), (128, 128, 3, 3), ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    ((256, 14, 14, 256), (256, 256, 3, 3), ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    ((256, 7, 7, 512), (512, 512, 3, 3), ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    ((2, 9, 9, 16), (32, 16, 3, 3), ((2, 2), (2, 2)), (2, 2), (1, 1)),
+    ((2, 9, 7, 16), (32, 16, 3, 3), ((3, 0), (0, 2)), (1, 1), (1, 1)),
+    ((256, 56, 56, 128), (128, 128, 3, 3), ((1, 1), (1, 1)), (1, 1), (2, 2)),
+    ((256, 28, 28, 256), (256, 256, 3, 3), ((1, 1), (1, 1)), (1, 1), (2, 2)),
+    ((256, 14, 14, 512), (512, 512, 3, 3), ((1, 1), (1, 1)), (1, 1), (2, 2)),
 ]
 
 
-def _dx_pads(x_shape, w_shape, padding, dilation):
-    """The reference's pads of g for its stride-1 dx, ((lo_h, hi_h), (lo_w,
-    hi_w)), as ``paddle_tpu/kernels/conv_fused.py`` ``_convkxk_dx``
-    computes them, and g's [OH, OW]."""
+def _geo_id(case):
+    """A geometry case's test id: its x and w shapes, padding and
+    dilation, and the stride where it is not (1, 1)."""
+    *rest, stride = case
+    return "-".join(map(str, rest)) + \
+        ("" if stride == (1, 1) else f"-stride{stride}")
+
+
+def _dx_pads(x_shape, w_shape, padding, dilation, stride=(1, 1)):
+    """The reference's pads of the interior-dilated g for its stride-1 dx,
+    ((lo_h, hi_h), (lo_w, hi_w)), as ``paddle_tpu/kernels/conv_fused.py``
+    ``_convkxk_dx`` computes them, and g's [OH, OW]."""
     _, h, wd, _ = x_shape
     _, _, kh, kw = w_shape
     (ph0, ph1), (pw0, pw1) = padding
     dh, dwl = dilation
+    sh, sw = stride
     eff_h, eff_w = (kh - 1) * dh + 1, (kw - 1) * dwl + 1
-    oh, ow = h + ph0 + ph1 - eff_h + 1, wd + pw0 + pw1 - eff_w + 1
+    oh = (h + ph0 + ph1 - eff_h) // sh + 1
+    ow = (wd + pw0 + pw1 - eff_w) // sw + 1
     lo_h, lo_w = eff_h - 1 - ph0, eff_w - 1 - pw0
-    hi_h = h + eff_h - 1 - lo_h - ((oh - 1) + 1)
-    hi_w = wd + eff_w - 1 - lo_w - ((ow - 1) + 1)
+    hi_h = h + eff_h - 1 - lo_h - ((oh - 1) * sh + 1)
+    hi_w = wd + eff_w - 1 - lo_w - ((ow - 1) * sw + 1)
     return ((lo_h, hi_h), (lo_w, hi_w)), (oh, ow)
 
 
-@pytest.mark.parametrize("x_shape,w_shape,padding,dilation", DX_GEO_CASES,
-                         ids=str)
+@pytest.mark.parametrize(
+    "x_shape,w_shape,padding,dilation,stride",
+    [pytest.param(*c, id=_geo_id(c)) for c in DX_GEO_CASES])
 def test_dx_geometry_pads_g_as_the_reference(x_shape, w_shape, padding,
-                                             dilation):
-    """The Geo of the forward conv a stride-1 dx runs: g [N, OH, OW, O] as
-    x with the reference's low pads, the flipped weight of O input and C
-    output channels, and the output H x W: the forward conv of g with the
-    reference's pads on both sides, the high pad included."""
+                                             dilation, stride):
+    """The Geo of the stride-1 forward conv a dx runs: g [N, OH, OW, O],
+    dilated by the stride, as x with the reference's low pads, the flipped
+    weight of O input and C output channels, and the output H x W: the
+    forward conv of the dilated g with the reference's pads on both sides,
+    the high pad included (the one the output size leaves the kernel)."""
     n, h, wd, c = x_shape
     o, _, kh, kw = w_shape
-    pads, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation)
-    geo = pcf.dx_geometry(x_shape, w_shape, (1, 1), padding, dilation)
-    assert geo == (n, oh, ow, o, c, kh, kw, h, wd, 1, 1, pads[0][0],
+    (sh, sw), (dh, dwl) = stride, dilation
+    pads, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation, stride)
+    geo = pcf.dx_geometry(x_shape, w_shape, stride, padding, dilation)
+    dil_h, dil_w = (oh - 1) * sh + 1, (ow - 1) * sw + 1
+    assert geo == (n, dil_h, dil_w, o, c, kh, kw, h, wd, 1, 1, pads[0][0],
                    pads[1][0], *dilation)
-    assert pcf.geometry((n, oh, ow, o), (c, o, kh, kw), (1, 1), pads,
+    assert pcf.geometry((n, dil_h, dil_w, o), (c, o, kh, kw), (1, 1), pads,
                         dilation) == geo
+    # the high pads the output size implies: the last output row's (and
+    # column's) last tap past the dilated g
+    assert (h - 1 + (kh - 1) * dh - geo[11] - (dil_h - 1),
+            wd - 1 + (kw - 1) * dwl - geo[12] - (dil_w - 1)) == \
+        (pads[0][1], pads[1][1])
+    if stride == (2, 2) and h == 56:
+        assert pads == ((1, 2), (1, 2))
+    # the same x at stride 2: g of half the size, dilated back
+    p2, (oh2, ow2) = _dx_pads(x_shape, w_shape, padding, dilation, (2, 2))
+    assert pcf.dx_geometry(x_shape, w_shape, (2, 2), padding, dilation) == \
+        (n, 2 * oh2 - 1, 2 * ow2 - 1, o, c, kh, kw, h, wd, 1, 1, p2[0][0],
+         p2[1][0], *dilation)
     with pytest.raises(ValueError, match="stride"):
-        pcf.dx_geometry(x_shape, w_shape, (2, 2), padding, dilation)
+        pcf.dx_geometry(x_shape, w_shape, (0, 1), padding, dilation)
 
 
-# (id, x_shape, o, padding, dilation): stride-1 3x3 dx at small sizes: C = O
-# = 64, C != O, dilated, uneven padding with a negative low pad of g
+@pytest.mark.parametrize("stride", [(2, 2), (2, 1), (1, 2), (3, 2)], ids=str)
+def test_dilate_cotangent_is_the_references_interior_pad(stride):
+    """g at every s-th row and column and zeros between, in g's dtype:
+    the interior part of the reference's ``lax.pad`` of g, shape and
+    values; g itself at stride (1, 1)."""
+    sh, sw = stride
+    g = torch.randn(2, 4, 5, 3).bfloat16()
+    got = pcf.dilate_cotangent(g, stride)
+    ref = jax.lax.pad(jnp.asarray(g.float().numpy()), jnp.float32(0),
+                      ((0, 0, 0), (0, 0, sh - 1), (0, 0, sw - 1), (0, 0, 0)))
+    assert got.dtype == g.dtype
+    assert tuple(got.shape) == ref.shape == (2, 3 * sh + 1, 4 * sw + 1, 3)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref))
+    assert torch.equal(got[:, ::sh, ::sw], g)
+    keep = torch.zeros(got.shape, dtype=torch.bool)
+    keep[:, ::sh, ::sw] = True
+    assert not got[~keep].any()
+    assert pcf.dilate_cotangent(g, (1, 1)) is g
+
+
+# (id, x_shape, o, padding, dilation, stride): 3x3 dx at small sizes: C = O
+# = 64, C != O, dilated, uneven padding with a negative low pad of g; at
+# stride 2 an even H and an odd H, strides (2, 1) and (1, 2), dilated, and
+# C != O
 DX_TC_CASES = [
-    ("c64", (2, 7, 7, 64), 64, ((1, 1), (1, 1)), (1, 1)),
-    ("c16_o32", (2, 6, 6, 16), 32, ((1, 1), (1, 1)), (1, 1)),
-    ("dilated", (2, 9, 9, 16), 32, ((2, 2), (2, 2)), (2, 2)),
-    ("uneven_negative_lo", (2, 7, 6, 16), 32, ((3, 0), (0, 2)), (1, 1)),
+    ("c64", (2, 7, 7, 64), 64, ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    ("c16_o32", (2, 6, 6, 16), 32, ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    ("dilated", (2, 9, 9, 16), 32, ((2, 2), (2, 2)), (2, 2), (1, 1)),
+    ("uneven_negative_lo", (2, 7, 6, 16), 32, ((3, 0), (0, 2)), (1, 1),
+     (1, 1)),
+    ("s2_even_h", (2, 8, 8, 16), 16, ((1, 1), (1, 1)), (1, 1), (2, 2)),
+    ("s2_odd_h", (2, 9, 7, 16), 16, ((1, 1), (1, 1)), (1, 1), (2, 2)),
+    ("s21", (2, 8, 7, 16), 16, ((1, 1), (1, 1)), (1, 1), (2, 1)),
+    ("s12", (2, 7, 8, 16), 16, ((1, 1), (1, 1)), (1, 1), (1, 2)),
+    ("s2_dilated", (2, 10, 9, 16), 16, ((2, 2), (2, 2)), (2, 2), (2, 2)),
+    ("s2_c16_o32", (2, 8, 8, 16), 32, ((1, 1), (1, 1)), (1, 1), (2, 2)),
 ]
 
 
@@ -564,27 +625,30 @@ DX_TC_CASES = [
                          ids=[c[0] for c in DX_TC_CASES])
 def test_dx_as_a_flipped_forward_conv_matches_the_jax_kernel(case, dt, x_dt):
     """What the ``tc`` route runs on the card, here in its plain version:
-    the forward conv of g at ``dx_geometry`` (its pads of g on both sides)
-    with the taps flipped and C and O swapped, against the JAX
-    ``_convkxk_dx`` in interpret mode (run eagerly) and the port's plain
-    dx: float32 within 1e-5, a bf16 operand within 2e-2, of max|plain|."""
-    _, x_shape, o, padding, dilation = case
+    g dilated by the stride (``dilate_cotangent``), then the forward conv
+    of it at ``dx_geometry`` (its pads of g on both sides) with the taps
+    flipped and C and O swapped, against the JAX ``_convkxk_dx`` in
+    interpret mode (run eagerly) and the port's plain dx: float32 within
+    1e-5, a bf16 operand within 2e-2, of max|plain|."""
+    _, x_shape, o, padding, dilation, stride = case
     n, h, wd, c = x_shape
     w_shape = (o, c, 3, 3)
-    pads, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation)
+    pads, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation, stride)
     rs = np.random.RandomState(11)
     jg, tg = _pair(rs.randn(n, oh, ow, o).astype(np.float32), dt)
     jw, tw = _pair((rs.randn(*w_shape) * (9 * c) ** -0.5).astype(np.float32),
                    dt)
-    ref = jcf._convkxk_dx(jg, None, None, jw, x_shape, JAX_DT[x_dt], (1, 1),
+    ref = jcf._convkxk_dx(jg, None, None, jw, x_shape, JAX_DT[x_dt], stride,
                           padding, dilation, True)
-    geo = pcf.dx_geometry(x_shape, w_shape, (1, 1), padding, dilation)
+    geo = pcf.dx_geometry(x_shape, w_shape, stride, padding, dilation)
     assert (geo[11], geo[12]) == (pads[0][0], pads[1][0])
-    got = pcf.convkxk_reference(tg, tw.flip(2, 3).transpose(0, 1),
+    gd = pcf.dilate_cotangent(tg, stride)
+    assert tuple(gd.shape) == (n, geo[1], geo[2], o)
+    got = pcf.convkxk_reference(gd, tw.flip(2, 3).transpose(0, 1),
                                 padding=pads, dilation=dilation,
                                 out_dtype=TORCH_DT[x_dt])
     plain = pcf.convkxk_dx_reference(tg, None, None, tw, x_shape,
-                                     TORCH_DT[x_dt], (1, 1), padding,
+                                     TORCH_DT[x_dt], stride, padding,
                                      dilation)
     assert got.dtype == plain.dtype == TORCH_DT[x_dt]
     assert tuple(got.shape) == tuple(ref.shape) == x_shape

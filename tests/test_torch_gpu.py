@@ -931,10 +931,11 @@ def test_fwd_tc_launch_raises_and_never_falls_back(cuda):
 
 # -- the tensor-core 3x3 dx (csrc/conv_kxk_fwd_tc.cu at dx_geometry) ----------
 
-# ResNet-50's distinct stride-1 3x3 shapes (h, c, o, 3, 1): 13 of the step's
-# 16 dx launches
+# ResNet-50's distinct 3x3 shapes (h, c, o, 3, stride): the step's 16 dx
+# launches, 13 at stride 1 and 3 at stride 2 (over g dilated by the
+# stride), and an odd H at stride 2
 DX_TC_SHAPES = sorted({s for s in chip_smoke.resnet50_conv_shapes()
-                       if s[3] == 3 and s[4] == 1})
+                       if s[3] == 3}) + [(15, 64, 128, 3, 2)]
 
 
 def _dx_routes(cf):
@@ -944,15 +945,15 @@ def _dx_routes(cf):
 def _dx_edge_case(dev, case, seed=0):
     """The arguments of one of chip_smoke's R1 tensor-core dx cases."""
     from paddle_tpu_torch.kernels import conv_fused as cf
-    _, (h, wd, c), o, batch, pad, dil, x_dtype = case
+    _, (h, wd, c), o, batch, pad, dil, x_dtype, stride = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     x_shape = (batch, h, wd, c)
     w = (torch.randn(o, c, 3, 3, device=dev, generator=gen)
          * (9 * o) ** -0.5).bfloat16()
-    geo = cf.geometry(x_shape, w.shape, (1, 1), pad, (dil, dil))
+    geo = cf.geometry(x_shape, w.shape, stride, pad, (dil, dil))
     g = torch.randn(batch, geo[7], geo[8], o, device=dev,
                     generator=gen).bfloat16()
-    return (g, None, None, w, x_shape, x_dtype or torch.bfloat16, (1, 1), pad,
+    return (g, None, None, w, x_shape, x_dtype or torch.bfloat16, stride, pad,
             (dil, dil))
 
 
@@ -963,13 +964,15 @@ def _dx_edge_case(dev, case, seed=0):
     + [c[0] for c in chip_smoke.R1_DX_TC_CASES])
 def test_dx_tc_route_matches_plain_version(cuda, case):
     """bf16 at the gate of chip_smoke's R1 (2e-2 of max |plain|), a bf16
-    and a float32 dx at ResNet-50's stride-1 shapes (batch 2), and R1's
-    dilated, uneven-padding, ragged-M and float32-dx cases."""
+    and a float32 dx at ResNet-50's 3x3 shapes, stride 1 and 2, and an odd
+    H at stride 2 (batch 2), and R1's dilated, uneven-padding, ragged-M and
+    float32-dx cases at stride 1 and its stride-2 and (2, 1) ones."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     kind, spec = case
     if kind == "resnet":
         x, w, g = chip_smoke.r_inputs(spec, 2, torch.bfloat16, cuda, 0)
-        arg_sets = [(g, None, None, w, x.shape, x_dtype, (1, 1),
+        s = spec[4]
+        arg_sets = [(g, None, None, w, x.shape, x_dtype, (s, s),
                      ((1, 1), (1, 1)), (1, 1))
                     for x_dtype in (torch.bfloat16, torch.float32)]
     else:
@@ -988,11 +991,11 @@ def test_dx_tc_route_matches_plain_version(cuda, case):
 
 
 def test_dx_route_counters_follow_the_rule(cuda):
-    """Of CONV_SHAPES' 3x3 convs none takes the tensor cores (C = 16 or
-    3, O = 70 or 130, or stride 2 at C = O = 64), in either dtype; at C =
-    O = 64 and stride 1 bf16 takes them, and a fold, float32 and a g off
-    16 bytes take SIMT. Every launch counts in ``convkxk_dx.launches``
-    too, and each dx equals its plain version."""
+    """Of CONV_SHAPES' 3x3 convs only the one at C = O = 64 (stride 2)
+    takes the tensor cores (the rest have C = 16 or 3, O = 70 or 130); at
+    C = O = 64, stride 1 and 2, bf16 without a fold takes them, and a
+    fold, float32 and a g off 16 bytes take SIMT. Every launch counts in
+    ``convkxk_dx.launches`` too, and each dx equals its plain version."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     cases = []
     for shape in CONV_SHAPES + [(8, 64, 64, 3, 1)]:
@@ -1001,7 +1004,7 @@ def test_dx_route_counters_follow_the_rule(cuda):
         for dtype in (torch.float32, torch.bfloat16):
             for extra in (False, True):
                 want = "tc" if dtype == torch.bfloat16 and not extra and \
-                    shape == (8, 64, 64, 3, 1) else "simt"
+                    shape[1:3] == (64, 64) else "simt"
                 cases.append((_conv_case(cuda, shape, dtype, extra), want))
     for calls, want in cases:
         kern, plain = calls["convkxk_dx"]
@@ -1029,9 +1032,10 @@ def test_dx_route_counters_follow_the_rule(cuda):
 
 
 def test_dx_tc_launch_raises_and_never_falls_back(cuda):
-    """The tensor-core dx's wrapper refuses a stride of 2, a fold and
-    float32 before any launch, and the forward's C entry C = 16: the
-    launch raises, and no other kernel or plain version runs in its
+    """The tensor-core dx's wrapper launches at stride 2 (over g dilated
+    by the stride) and counts nothing; it refuses a fold, at stride 1 and
+    2, and float32 before any launch, and the forward's C entry C = 16:
+    the launch raises, and no other kernel or plain version runs in its
     place."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     pads = ((1, 1), (1, 1))
@@ -1043,9 +1047,16 @@ def test_dx_tc_launch_raises_and_never_falls_back(cuda):
                                         torch.bfloat16, cuda, 0)
     mask = torch.relu(g)
     before = _dx_routes(cf), cf.convkxk_dx.launches
-    with pytest.raises(ValueError, match="stride"):
-        cf.convkxk_dx_launch("tc", g2, None, None, w, x.shape, x.dtype,
-                             (2, 2), pads, (1, 1))
+    s2 = (g2, None, None, w, x.shape, x.dtype, (2, 2), pads, (1, 1))
+    got = cf.convkxk_dx_launch("tc", *s2)
+    torch.cuda.synchronize()
+    assert _rel_err(got, cf.convkxk_dx_reference(*s2)) < 2e-2
+    with pytest.raises(ValueError, match="fold"):
+        cf.convkxk_dx_launch("tc", g2, torch.relu(g2), None, w, x.shape,
+                             x.dtype, (2, 2), pads, (1, 1))
+    with pytest.raises(TypeError):
+        cf.convkxk_dx_launch("tc", g2.float(), None, None, w.float(),
+                             x.shape, torch.float32, (2, 2), pads, (1, 1))
     with pytest.raises(ValueError, match="fold"):
         cf.convkxk_dx_launch("tc", g, mask, None, w, x.shape, x.dtype,
                              (1, 1), pads, (1, 1))
@@ -1066,14 +1077,14 @@ def test_dx_tc_launch_raises_and_never_falls_back(cuda):
 
 def test_conv2d_bn_act_3x3_bf16_backward_takes_the_tensor_core_dx(cuda):
     """The autograd route on the card, as a training step calls it (no
-    epilogue, so nothing folds): a bf16 stride-1 3x3 at C = O = 64 takes
-    the tensor-core dx, a stride-2 one SIMT; the gradients equal the CPU's
-    plain route within 2e-2 of their largest magnitude."""
+    epilogue, so nothing folds): a bf16 3x3 at C = O = 64 takes the
+    tensor-core dx at stride 1 and at stride 2; the gradients equal the
+    CPU's plain route within 2e-2 of their largest magnitude."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     gen = torch.Generator().manual_seed(3)
     x = torch.randn(2, 9, 9, 64, generator=gen).bfloat16()
     w = (torch.randn(64, 64, 3, 3, generator=gen) / 24).bfloat16()
-    for stride, want in ((1, "tc"), (2, "simt")):
+    for stride in (1, 2):
         oh = (9 - 1) // stride + 1
         cot = torch.randn(2, oh, oh, 64, generator=gen).bfloat16()
         outs = {}
@@ -1084,9 +1095,7 @@ def test_conv2d_bn_act_3x3_bf16_backward_takes_the_tensor_core_dx(cuda):
             grads = torch.autograd.grad(out, leaves, cot.to(dev))
             if dev != "cpu":
                 torch.cuda.synchronize()
-                assert _dx_routes(cf) == (
-                    (before[0] + 1, before[1]) if want == "tc"
-                    else (before[0], before[1] + 1))
+                assert _dx_routes(cf) == (before[0] + 1, before[1])
             outs[str(dev)] = grads
         for a, b in zip(outs["cpu"], outs[str(cuda)]):
             assert _rel_err(b.cpu(), a) < 2e-2, stride
