@@ -58,14 +58,21 @@ R2. train    float32 ResNet-50 at batch 32 x 224 (full width and depth),
              every first-step gradient leaf, the BN running stats and the
              last loss gated (a fixed tolerance, or twice the floor); 108
              brgemm (all on SIMT), 16 of each 3x3 kernel (all on the SIMT
-             kernels) and one of each pool
-             kernel launched a step;
+             kernels) and one pool forward and one pool backward (on the
+             tile kernel) launched a step;
 P1. pool     the pool kernels against their plain versions at the stem's
              shape (bf16 at batch 256, float32 at batch 8), at odd planes,
-             on windows of ties and on NaN / -inf / finfo.min entries: out
-             and idx equal, dx bit for bit; the plain versions' and
-             ``F.max_pool2d``'s times (and its backward's) beside the
-             bound;
+             on windows of ties, on NaN / -inf / finfo.min entries, at
+             2x2/s2/p0 and at C = 3: out and idx equal, dx bit for bit,
+             the backward on the route ``pool_fused.bwd_route`` names (the
+             tile kernel, ``pool_bwd_tile_kernel``, but at C = 3, which
+             takes the gather, ``pool_bwd_kernel``) and, where that is the
+             tile kernel, the gather on the same inputs bit for bit too;
+             ``nn_ops.pool2d`` with the knob on, forward and backward at
+             C = 64 and C = 3 (one backward on each route, counted); the
+             forward's and both backward kernels' times, the plain
+             versions' and ``F.max_pool2d``'s (and its backward's) beside
+             the bound;
 
 Then the sentiment classifier (``paddle_tpu_torch/imdb_bench.py``, the
 ``imdb_real`` step: ``csrc/seqpool.cu`` for the embedding lookup and mean
@@ -132,7 +139,8 @@ R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
              steps (imgs/s over all of them), one profiled step each
              (device busy time, idle share over its own wall time; its own
              count of 104 tensor-core forwards, 52 tensor-core weight
-             gradients and no SIMT conv kernel, gated); in the
+             gradients and no SIMT conv kernel, and of one pool forward,
+             one tile pool backward and no gather, gated); in the
              lowp default a counted step with the pool knob off (no pool
              launch) and timed steps with the knob off and on in turns; in
              pure bf16 an eval forward through the conv+BN+relu epilogue
@@ -143,7 +151,9 @@ R4. numbers  each conv and pool kernel row's device time a launch beside
              the mean over the step's launches of its bound, its plain
              version and a library call (``torch.matmul``, cuDNN,
              ``F.max_pool2d``) that the port never calls: the pool
-             kernels from their own launches in the profiled lowp step;
+             forward and the tile backward from their own launches in the
+             profiled lowp step, the gather (no step launches it) from
+             P1's calls;
              each conv kernel's rows (the tensor-core ones share their
              kernels between 1x1 and 3x3 convs and the 3x3 dx) from the
              step's calls at batch 256 in bf16 launched on each route in
@@ -246,6 +256,7 @@ import os
 import sys
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -353,7 +364,15 @@ KERNELS = {
         "source": "paddle_tpu_torch/csrc/pool_fused.cu",
         "replaces": "paddle_tpu/kernels/pool_fused.py:110",
     },
-    "pool_bwd": {
+    # the pool backward's two kernels, ``pool_fused.bwd_route``'s routes:
+    # the gather, and bands of dx rows summed from g and idx rows staged in
+    # shared memory by bulk asynchronous copies
+    "pool_bwd_gather": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/pool_fused.cu",
+        "replaces": "paddle_tpu/kernels/pool_fused.py:184",
+    },
+    "pool_bwd_tile": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/pool_fused.cu",
         "replaces": "paddle_tpu/kernels/pool_fused.py:184",
@@ -1857,10 +1876,15 @@ TC_TWIN = {"convkxk_tc": "convkxk", "convkxk_dx_tc": "convkxk_dx",
 # launches of a bf16 training step of ResNet-50 with the conv and pool
 # knobs on (36 1x1 convs: forward, dx and dw each; 16 3x3 convs; the stem's
 # max pool) and of an eval forward
+# ("pool_bwd" counts every pool backward; "pool_bwd_tile" and
+# "pool_bwd_gather" the launches of each route, whose kernel rows have the
+# same names: the stem's, C = 64 in float32 and bf16, takes the tile kernel)
 R_PER_STEP = {"brgemm": 108, "convkxk": 16, "convkxk_dx": 16,
-              "convkxk_dw": 16, "pool_fwd": 1, "pool_bwd": 1}
+              "convkxk_dw": 16, "pool_fwd": 1, "pool_bwd": 1,
+              "pool_bwd_tile": 1, "pool_bwd_gather": 0}
 R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0,
-          "pool_fwd": 1, "pool_bwd": 0}
+          "pool_fwd": 1, "pool_bwd": 0, "pool_bwd_tile": 0,
+          "pool_bwd_gather": 0}
 # of those, the launches each tensor-core row takes when the convs see
 # bf16: every 3x3 forward, dx and weight gradient (the 3 stride-2 dx, in
 # the first bottleneck of stages 2-4, over g dilated by the stride); the
@@ -1872,7 +1896,9 @@ TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dx_tc": 16, "convkxk_dw_tc": 16,
 TC_EVAL = {"convkxk_tc": 16, "convkxk_dx_tc": 0, "convkxk_dw_tc": 0,
            "brgemm_tc_fwd": 36, "brgemm_tc_dw": 0}
 # the step with the pool knob off
-R_POOL_OFF = dict(R_PER_STEP, pool_fwd=0, pool_bwd=0)
+R_POOL_OFF = dict(R_PER_STEP, pool_fwd=0, pool_bwd=0, pool_bwd_tile=0)
+# the pool kernel rows, each counted under its own name in R_PER_STEP
+POOL_ROWS = ("pool_fwd", "pool_bwd_tile", "pool_bwd_gather")
 # the dtype the eval forward's convs see in the pure bf16 model: the stem's
 # BatchNorm (float32 running stats) promotes the activation to float32
 EVAL_DTYPE = torch.float32
@@ -1890,7 +1916,9 @@ R_SYMBOLS = {"brgemm": "DenseA", "brgemm_tc_fwd": "conv_kxk_fwd_tc",
              "convkxk_tc": "conv_kxk_fwd_tc", "convkxk_dx": "DyRows",
              "convkxk_dx_tc": "conv_kxk_fwd_tc",
              "convkxk_dw": "XCols", "convkxk_dw_tc": "conv_kxk_dw_tc",
-             "pool_fwd": "pool_fwd_kernel", "pool_bwd": "pool_bwd_kernel"}
+             "pool_fwd": "pool_fwd_kernel",
+             "pool_bwd_gather": "pool_bwd_kernel",
+             "pool_bwd_tile": "pool_bwd_tile_kernel"}
 # the tensor-core forward's kernel (one a launch)
 FWD_TC_KERNEL = "conv_kxk_fwd_tc_kernel"
 # the tensor-core weight gradient's GEMM alone (one a launch)
@@ -1996,7 +2024,9 @@ def r_counters():
             convkxk_dw_tc=(cf.convkxk_dw_cuda, "tc_launches"),
             convkxk_dw_simt=(cf.convkxk_dw_cuda, "simt_launches"),
             pool_fwd=(pf.pool_fwd, "launches"),
-            pool_bwd=(pf.pool_bwd, "launches"))
+            pool_bwd=(pf.pool_bwd, "launches"),
+            pool_bwd_tile=(pf.pool_bwd, "tile_launches"),
+            pool_bwd_gather=(pf.pool_bwd, "gather_launches"))
     return _R_COUNTED
 
 
@@ -2646,9 +2676,9 @@ def phase_resnet_bench(dev, seed):
         set_resnet_knobs(pool=True)
         wall = walls[True]
         # the profile's own count of the kernels the gates count: the
-        # pool kernels, the tensor-core conv kernels and the SIMT twins
-        expect = {R_SYMBOLS[k]: R_PER_STEP[k] for k in ("pool_fwd",
-                                                        "pool_bwd")}
+        # pool kernels (the backward on the tile kernel, none on the
+        # gather), the tensor-core conv kernels and the SIMT twins
+        expect = {R_SYMBOLS[row]: R_PER_STEP[row] for row in POOL_ROWS}
         expect.update(TC_IN_STEP)
         busy, kernels, prof_ms = profiled(
             step, f"the ResNet-50 step ({label})", expect=expect)
@@ -2680,6 +2710,13 @@ def phase_resnet_bench(dev, seed):
                            f"kernels {tc}, expected {TC_IN_STEP}: every 3x3 "
                            f"forward, dx and weight gradient and every 1x1 "
                            f"GEMM on the tensor cores")
+            pools = {row: rec["kernels_in_step"][row]["count"]
+                     for row in POOL_ROWS}
+            if pools != {row: R_PER_STEP[row] for row in POOL_ROWS}:
+                fail("R3", f"{label}: the profiled step ran the pool "
+                           f"kernels {pools}: expected one forward and the "
+                           f"one backward on the tile kernel, none on the "
+                           f"gather")
         log(f"[R3] {label}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
             f"launches a step {counts}; pool knob on: step "
             f"{', '.join(f'{t:.1f}' for t in wall)} ms, "
@@ -3041,23 +3078,50 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
 # -- the fused max pool (P1) ----------------------------------------------------
 
 POOL_CFG = (3, 2, 1)            # the stem's Pool2D(3, "max", 2, 1)
-# (case, batch, h, w, c, dtype, input): the stem's shape in bf16 at the
-# bench's batch and in float32 at R1's, odd planes, windows of ties, and
-# NaN / -inf / finfo.min entries (which the kernel never picks)
+class PoolCase(NamedTuple):
+    """A pool call of P1: its input ([batch, h, w, c] in ``dtype``, drawn
+    as ``kind`` says), its (pool size, stride, padding) and the backward's
+    route, as ``pool_fused.bwd_route`` must name it."""
+    name: str
+    batch: int
+    h: int
+    w: int
+    c: int
+    dtype: torch.dtype
+    kind: str
+    cfg: tuple
+    route: str
+
+
+# the stem's shape in bf16 at the bench's batch and in float32 at R1's,
+# odd planes, windows of ties, NaN / -inf / finfo.min entries (which the
+# kernel never picks), all on the backward's tile route; 2x2/s2/p0 on the
+# tile route; C = 3, which the rule sends to the gather
 P1_CASES = [
-    ("stem", R3_BATCH, 112, 112, 64, torch.bfloat16, "randn"),
-    ("stem", R1_BATCH, 112, 112, 64, torch.float32, "randn"),
-    ("odd", 3, 37, 29, 24, torch.float32, "randn"),
-    ("odd", 3, 37, 29, 24, torch.bfloat16, "randn"),
-    ("ties", R1_BATCH, 112, 112, 64, torch.bfloat16, "ties"),
-    ("specials", 2, 15, 17, 8, torch.float32, "specials"),
+    PoolCase("stem", R3_BATCH, 112, 112, 64, torch.bfloat16, "randn",
+             POOL_CFG, "tile"),
+    PoolCase("stem", R1_BATCH, 112, 112, 64, torch.float32, "randn",
+             POOL_CFG, "tile"),
+    PoolCase("odd", 3, 37, 29, 24, torch.float32, "randn", POOL_CFG, "tile"),
+    PoolCase("odd", 3, 37, 29, 24, torch.bfloat16, "randn", POOL_CFG,
+             "tile"),
+    PoolCase("ties", R1_BATCH, 112, 112, 64, torch.bfloat16, "ties",
+             POOL_CFG, "tile"),
+    PoolCase("specials", 2, 15, 17, 8, torch.float32, "specials", POOL_CFG,
+             "tile"),
+    PoolCase("k2s2p0", R1_BATCH, 112, 112, 64, torch.bfloat16, "randn",
+             (2, 2, 0), "tile"),
+    PoolCase("c3", R1_BATCH, 112, 112, 3, torch.bfloat16, "randn", POOL_CFG,
+             "gather"),
 ]
 
 
 def pool_input(case, dev, seed):
-    _, b, h, w, c, dtype, kind = case
+    """P1's input of ``case`` (a ``PoolCase``), from ``seed``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(b, h, w, c, device=dev, generator=gen)
+    x = torch.randn(case.batch, case.h, case.w, case.c, device=dev,
+                    generator=gen)
+    kind = case.kind
     if kind == "ties":                  # post-relu values on a few levels
         x = torch.relu(torch.round(x * 2) / 2)
     elif kind == "specials":
@@ -3066,7 +3130,7 @@ def pool_input(case, dev, seed):
         flat[3::11] = float("-inf")
         flat[5::13] = torch.finfo(torch.float32).min
         x[0, :2, :2, :] = float("-inf")   # windows with nothing to pick
-    return x.to(dtype)
+    return x.to(case.dtype)
 
 
 def bits(t):
@@ -3084,19 +3148,81 @@ def pool_work(geo, esize):
     return esize * (x_el + o_el) + 4 * o_el, o_el * kh * kw
 
 
+def pool_routes():
+    """The pool backward's launches so far by route: (tile, gather)."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    return pf.pool_bwd.tile_launches, pf.pool_bwd.gather_launches
+
+
+def pool_entry_path(dev, seed):
+    """P1's path through the entry point a model calls: ``nn_ops.pool2d``
+    with the pool knob on, forward and backward through autograd, at the
+    stem's shape in bf16 at batch 8 with C = 64 (the tile kernel) and with
+    C = 3 (the gather); the counts set to 0 just before and read just
+    after. Out and dx bit for bit against ``max_pool2d_fused_reference``
+    on the same inputs. Returns the counts."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    from paddle_tpu_torch.ops import nn_ops
+    xs = [pool_input(PoolCase("entry", R1_BATCH, 112, 112, c, torch.bfloat16,
+                              "randn", POOL_CFG, route), dev,
+                     seed).requires_grad_()
+          for c, route in ((64, "tile"), (3, "gather"))]
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    saved = pf.POOL_FUSED
+    pf.set_pool_fused(True)
+    try:
+        zero_r_counts()
+        outs = []
+        for x in xs:
+            out = nn_ops.pool2d(x, 3, "max", 2, 1, data_format="NHWC")
+            cot = torch.randn(out.shape, device=dev, generator=gen).to(
+                x.dtype)
+            outs.append((out, cot, torch.autograd.grad(out, x, cot)[0]))
+        torch.cuda.synchronize()
+        counts = r_counts()
+    finally:
+        pf.set_pool_fused(saved)
+    want = {k: 0 for k in counts}
+    want.update(pool_fwd=2, pool_bwd=2, pool_bwd_tile=1, pool_bwd_gather=1)
+    if counts != want:
+        fail("P1", f"pool2d's forward and backward launched {counts}, "
+                   f"expected {want}")
+    for x, (out, cot, dx) in zip(xs, outs):
+        leaf = x.detach().requires_grad_()
+        ref = pf.max_pool2d_fused_reference(leaf, 3, 2, 1)
+        (ref_dx,) = torch.autograd.grad(ref, leaf, cot)
+        if not (torch.equal(bits(out.detach()), bits(ref.detach()))
+                and torch.equal(bits(dx), bits(ref_dx))):
+            fail("P1", f"pool2d at C = {x.shape[-1]}: out or dx differs "
+                       f"from the plain version's")
+    log(f"[P1] pool2d (knob on), forward and backward at C = 64 and C = 3: "
+        f"launches {({k: v for k, v in counts.items() if v})}, out and dx "
+        f"bit-identical to the plain route's")
+    return {k: counts[k] for k in ("pool_fwd", "pool_bwd", "pool_bwd_tile",
+                                   "pool_bwd_gather")}
+
+
 def phase_pool(dev, seed):
     """P1: the pool kernels against their plain versions (out and idx
     equal, dx bit for bit) on every case of P1_CASES, one launch of each a
-    call; then at the stem's shape in bf16 (batch 256), the bound, the
-    plain versions' and the library's times (``F.max_pool2d(...,
-    return_indices=True)`` on the channels_last view, and its backward),
-    and the kernels' own time a call (CUDA events)."""
+    call, the backward on the route ``bwd_route`` names (and, where that
+    is the tile kernel, the gather on the same inputs, uncounted, bit for
+    bit too); the entry point's path (``pool_entry_path``); then at the
+    stem's shape in bf16 (batch 256), the bound, the plain versions' and
+    the library's times (``F.max_pool2d(..., return_indices=True)`` on the
+    channels_last view, and its backward), and each kernel's own time a
+    call (CUDA events), the backward on both routes."""
     from paddle_tpu_torch.kernels import pool_fused as pf
     results = []
     for case in P1_CASES:
+        route = case.route
         x = pool_input(case, dev, seed)
-        geo = pf.geometry(x.shape, *POOL_CFG)
+        geo = pf.geometry(x.shape, *case.cfg)
+        if pf.bwd_route(x.dtype, geo, True) != route:
+            fail("P1", f"{case}: bwd_route names "
+                       f"{pf.bwd_route(x.dtype, geo, True)}, not {route}")
         before = (pf.pool_fwd.launches, pf.pool_bwd.launches)
+        routes_before = pool_routes()
         out, idx = pf.pool_fwd_cuda(x, geo)
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         g = torch.randn(out.shape, device=dev, generator=gen).to(x.dtype)
@@ -3104,10 +3230,12 @@ def phase_pool(dev, seed):
         torch.cuda.synchronize()
         launched = (pf.pool_fwd.launches - before[0],
                     pf.pool_bwd.launches - before[1])
+        by_route = tuple(a - b for a, b in zip(pool_routes(), routes_before))
         ref_out, ref_idx = pf.pool_fwd_reference(x, geo)
         ref_dx = pf.pool_bwd_reference(g, ref_idx, geo, x.dtype)
-        rec = {"case": case[0], "dtype": str(x.dtype).split(".")[-1],
-               "shape": list(x.shape),
+        rec = {"case": case.name, "dtype": str(x.dtype).split(".")[-1],
+               "shape": list(x.shape), "pool": list(case.cfg),
+               "route": route, "launches_by_route": by_route,
                "out_equal": torch.equal(out, ref_out),
                "idx_equal": torch.equal(idx, ref_idx),
                "dx_bitwise": torch.equal(bits(dx), bits(ref_dx)),
@@ -3116,19 +3244,34 @@ def phase_pool(dev, seed):
                "max_abs_err": (dx.float() - ref_dx.float()).abs().max()
                .item(), "unpicked_windows": int((idx == -1).sum()),
                "launches": launched}
+        if route == "tile":
+            other = pf.pool_bwd_launch("gather", g, idx, geo, x.dtype)
+            torch.cuda.synchronize()
+            rec["gather_bitwise"] = torch.equal(bits(other), bits(ref_dx))
+            rec["gather_max_abs_err"] = (other.float() - ref_dx.float()) \
+                .abs().max().item()
+            del other
         rec["ok"] = rec["out_equal"] and rec["idx_equal"] and \
-            rec["dx_bitwise"] and launched == (1, 1)
+            rec["dx_bitwise"] and rec.get("gather_bitwise", True) and \
+            launched == (1, 1) and \
+            by_route == ((1, 0) if route == "tile" else (0, 1))
         results.append(rec)
-        log(f"[P1] {rec['case']:<8} {rec['dtype']:>8} {rec['shape']}: out "
+        log(f"[P1] {rec['case']:<8} {rec['dtype']:>8} {rec['shape']} "
+            f"{'x'.join(map(str, case.cfg))}: out "
             f"{'equal' if rec['out_equal'] else 'DIFFERS'}, idx "
-            f"{'equal' if rec['idx_equal'] else 'DIFFERS'}, dx "
+            f"{'equal' if rec['idx_equal'] else 'DIFFERS'}, dx on {route} "
             f"{'bit-identical' if rec['dx_bitwise'] else 'DIFFERS'} (max "
-            f"|kernel - plain| {rec['max_abs_err']:.3e}); windows with "
-            f"nothing to pick {rec['unpicked_windows']}; launches {launched}")
+            f"|kernel - plain| {rec['max_abs_err']:.3e})"
+            + (f", on the gather "
+               f"{'bit-identical' if rec['gather_bitwise'] else 'DIFFERS'}"
+               if route == "tile" else "")
+            + f"; windows with nothing to pick {rec['unpicked_windows']}; "
+            f"launches {launched}, backward (tile, gather) {by_route}")
         if not rec["ok"]:
             fail("P1", f"{rec}")
         del x, out, idx, g, dx, ref_out, ref_idx, ref_dx
     torch.cuda.empty_cache()
+    path = pool_entry_path(dev, seed)
 
     x = pool_input(P1_CASES[0], dev, seed)
     geo = pf.geometry(x.shape, *POOL_CFG)
@@ -3139,16 +3282,25 @@ def phase_pool(dev, seed):
     _, lib_idx = torch.nn.functional.max_pool2d(xn, 3, 2, 1,
                                                 return_indices=True)
     bnd = bound_ms(*pool_work(geo, x.element_size()), torch.float32)
+
+    def bwd_lib():
+        return torch.ops.aten.max_pool2d_with_indices_backward(
+            gn, xn, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx)
+
+    def bwd_plain():
+        return pf.pool_bwd_reference(g, idx, geo, x.dtype)
+
     numbers = {}
     for key, kern, plain, lib in (
             ("pool_fwd", lambda: pf.pool_fwd_cuda(x, geo),
              lambda: pf.pool_fwd_reference(x, geo),
              lambda: torch.nn.functional.max_pool2d(
                  xn, 3, 2, 1, return_indices=True)),
-            ("pool_bwd", lambda: pf.pool_bwd_cuda(g, idx, geo, x.dtype),
-             lambda: pf.pool_bwd_reference(g, idx, geo, x.dtype),
-             lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                 gn, xn, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx))):
+            ("pool_bwd_gather", lambda: pf.pool_bwd_launch(
+                "gather", g, idx, geo, x.dtype), bwd_plain, bwd_lib),
+            ("pool_bwd_tile", lambda: pf.pool_bwd_launch("tile", g, idx, geo,
+                                                         x.dtype),
+             bwd_plain, bwd_lib)):
         numbers[key] = {"call_ms": time_ms(kern, [()], 20),
                         "plain_ms": time_ms(plain, [()], 3),
                         "library_ms": time_ms(lib, [()], 20),
@@ -3159,9 +3311,16 @@ def phase_pool(dev, seed):
             f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.4f} ms (CUDA events); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes']} bytes)")
+    # the gather has no launch in a step: its time a launch is P1's
+    numbers["pool_bwd_gather"]["ms"] = numbers["pool_bwd_gather"]["call_ms"]
+    tile_ms, gather_ms = (numbers[k]["call_ms"]
+                          for k in ("pool_bwd_tile", "pool_bwd_gather"))
+    log(f"[P1] pool_bwd on the tile kernel {tile_ms:.4f} ms against the "
+        f"gather's {gather_ms:.4f} ms a call on the same inputs "
+        f"({gather_ms / tile_ms:.2f}x)")
     del x, out, idx, g, xn, gn, lib_idx
     torch.cuda.empty_cache()
-    return results, numbers
+    return results, numbers, path
 
 
 # -- the IMDB sentiment classifier (E1, E2) -------------------------------------
@@ -3987,7 +4146,8 @@ def main(argv=None):
     report["build"] = phase_build()
     report["resnet_kernels"], r_worst = phase_resnet_kernels(dev, args.seed)
     report["resnet_train"] = phase_resnet_train(dev, args.seed)
-    report["pool_kernels"], pool_numbers = phase_pool(dev, args.seed)
+    report["pool_kernels"], pool_numbers, report["pool_path"] = \
+        phase_pool(dev, args.seed)
     report["seqpool_kernels"], seqpool_worst, report["seqpool_shapes"] = \
         phase_seqpool_kernels(dev, args.seed)
     report["imdb_train"] = phase_imdb_train(dev, args.seed)
@@ -4068,12 +4228,24 @@ def main(argv=None):
     worst.update(
         layer_norm=ln_worst, seqpool=seqpool_worst,
         pool_fwd=max(r["out_max_abs_err"] for r in report["pool_kernels"]),
-        pool_bwd=max(r["max_abs_err"] for r in report["pool_kernels"]))
-    for key in ("pool_fwd", "pool_bwd"):
-        in_step = r_main["kernels_in_step"][key]
-        if in_step["count"] != R_PER_STEP[key]:
-            fail("R4", f"the profiled step shows {in_step['count']} {key}")
-        pool_numbers[key]["ms"] = in_step["device_ms"] / in_step["count"]
+        pool_bwd_gather=max(r.get("gather_max_abs_err", r["max_abs_err"])
+                            for r in report["pool_kernels"]),
+        pool_bwd_tile=max(r["max_abs_err"] for r in report["pool_kernels"]
+                          if r["route"] == "tile"))
+    # the pool kernels: the forward and the tile backward's device time
+    # from their launches in the profiled step; the gather, which no step
+    # launches, from P1's calls. Launches: the counted steps of R2 and R3,
+    # the eval forward and P1's entry-point path, each in
+    # ``launches_by_path``
+    pool_paths = dict(route_paths, pool2d_entry=report["pool_path"])
+    for row in POOL_ROWS:
+        in_step = r_main["kernels_in_step"][row]
+        if in_step["count"] != R_PER_STEP[row]:
+            fail("R4", f"the profiled step shows {in_step['count']} {row}")
+        if in_step["count"]:
+            pool_numbers[row]["ms"] = in_step["device_ms"] / in_step["count"]
+        by_path[row] = {p: c[row] for p, c in pool_paths.items()}
+        launches[row] = sum(by_path[row].values())
     # flash_fwd (SIMT): the serving decoder shape's times (12 of every 12
     # launches per decode step); flash_fwd_tc: the training shape's (12
     # launches a step). Their other shapes are in "shapes", each with the
@@ -4122,6 +4294,8 @@ def main(argv=None):
                 rec["simt_ms"] = report["resnet_numbers"][name]["simt_ms"]
         elif name in pool_numbers:
             rec.update({k: pool_numbers[name][k] for k in keys})
+            rec["call_ms"] = pool_numbers[name]["call_ms"]
+            rec["launches_by_path"] = by_path[name]
         elif name == "seqpool":
             rec.update({k: report["imdb_train"]["seqpool_numbers"][k]
                         for k in keys})

@@ -164,9 +164,63 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
         {k: v for k, v in per_step.items() if not k.startswith("pool")}
     assert (chip_smoke.R_EVAL["pool_fwd"], chip_smoke.R_EVAL["pool_bwd"]) \
         == (1, 0)
-    assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd", "seqpool",
-                                       "layer_norm"}
-    assert len(chip_smoke.KERNELS) == 20
+    # the step's one backward on the tile kernel, none on the gather
+    assert (per_step["pool_bwd_tile"], per_step["pool_bwd_gather"]) == (1, 0)
+    assert (off["pool_bwd_tile"], off["pool_bwd_gather"]) == (0, 0)
+    assert (chip_smoke.R_EVAL["pool_bwd_tile"],
+            chip_smoke.R_EVAL["pool_bwd_gather"]) == (0, 0)
+    assert set(chip_smoke.KERNELS) >= {"pool_fwd", "pool_bwd_gather",
+                                       "seqpool", "layer_norm",
+                                       "pool_bwd_tile"}
+    # each pool kernel row is counted under its own name
+    assert set(chip_smoke.POOL_ROWS) == {
+        k for k in chip_smoke.KERNELS if k.startswith("pool")}
+    assert set(chip_smoke.POOL_ROWS) <= set(per_step)
+    assert len(chip_smoke.KERNELS) == 21
+
+
+def test_kernels_line_has_the_tile_pool_backward_row():
+    """The 21st row: the pool backward's second kernel, in the same source
+    as the gather; the profile tells the two apart by symbol, and R3
+    expects one tile backward and no gather in a step."""
+    row, gather = (chip_smoke.KERNELS["pool_bwd_tile"],
+                   chip_smoke.KERNELS["pool_bwd_gather"])
+    assert row == gather == {
+        "route": "cuda", "source": "paddle_tpu_torch/csrc/pool_fused.cu",
+        "replaces": "paddle_tpu/kernels/pool_fused.py:184"}
+    sym = chip_smoke.R_SYMBOLS
+    assert sym["pool_bwd_tile"] == "pool_bwd_tile_kernel"
+    assert sym["pool_bwd_gather"] == "pool_bwd_kernel"
+    tile_name = ("void (anonymous namespace)::pool_bwd_tile_kernel<"
+                 "__nv_bfloat16, 8>(__nv_bfloat16 const*, int const*, "
+                 "__nv_bfloat16*, int2 const*, (anonymous namespace)::Geo, "
+                 "int, int)")
+    gather_name = ("void (anonymous namespace)::pool_bwd_kernel<"
+                   "__nv_bfloat16, 8>(__nv_bfloat16 const*, int const*, "
+                   "__nv_bfloat16*, (anonymous namespace)::Geo)")
+    assert sym["pool_bwd_gather"] not in tile_name
+    assert sym["pool_bwd_tile"] not in gather_name
+    assert sym["pool_fwd"] not in tile_name + gather_name
+    expect = {sym[r]: chip_smoke.R_PER_STEP[r] for r in chip_smoke.POOL_ROWS}
+    assert expect == {"pool_fwd_kernel": 1, "pool_bwd_kernel": 0,
+                      "pool_bwd_tile_kernel": 1}
+
+
+def test_p1_cases_take_the_routes_the_script_asserts():
+    """P1's cases on the route ``bwd_route`` names for the aligned tensors
+    the kernels allocate: the tile kernel but for C = 3; a 2x2/s2/p0 case
+    and the stem's bf16 batch-256 shape first, which P1 times."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    for case in chip_smoke.P1_CASES:
+        shape = (case.batch, case.h, case.w, case.c)
+        assert pf.bwd_route(case.dtype, pf.geometry(shape, *case.cfg),
+                            True) == case.route, case
+    assert {case.route for case in chip_smoke.P1_CASES} == {"tile", "gather"}
+    assert any(case.cfg == (2, 2, 0) for case in chip_smoke.P1_CASES)
+    stem = chip_smoke.P1_CASES[0]
+    assert (stem.batch, stem.h, stem.w, stem.c, stem.dtype) == (
+        chip_smoke.R3_BATCH, 112, 112, 64, torch.bfloat16)
+    assert stem.cfg == chip_smoke.POOL_CFG == (3, 2, 1)
 
 
 def test_kernels_line_has_the_tensor_core_weight_gradient_row():
@@ -870,7 +924,7 @@ def test_kernels_line_has_the_tensor_core_dq_row():
                    "source": "paddle_tpu_torch/csrc/flash_bwd_dq_tc.cu",
                    "replaces": "paddle_tpu/kernels/attention.py:345"}
     assert simt["replaces"] == row["replaces"]
-    assert len(chip_smoke.KERNELS) == 20
+    assert len(chip_smoke.KERNELS) == 21
     assert "flash_bwd_dq_tc" in chip_smoke.SOURCES
     assert chip_smoke.FLASH_TC_TWIN == {"flash_fwd_tc": "flash_fwd",
                                         "flash_bwd_dq_tc": "flash_bwd_dq",

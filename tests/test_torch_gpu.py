@@ -1321,8 +1321,23 @@ def test_float8_casts_on_the_card_equal_the_cpus(cuda):
 
 # -- the fused max pool and the embedding seqpool ------------------------------
 
-POOL_CASES = [((2, 112, 112, 64), 3, 2, 1), ((3, 37, 29, 24), 3, 2, 1),
-              ((2, 8, 10, 6), 2, 2, 0), ((2, 9, 9, 5), 3, 1, 1)]
+# (shape, pool size, stride, padding, the backward's route in float32 and
+# bf16 alike): the stem's 3x3/s2/p1 (at batch 16 every block walks several
+# bands, so the ring of stages turns over), at an odd plane, 2x2/s2/p0,
+# 3x3/s1/p1 (up to 9 windows sum: the order matters), kh != kw and
+# sh != sw, and C that is not a multiple of the 16-byte vector (the gather)
+POOL_CASES = [((2, 112, 112, 64), 3, 2, 1, "tile"),
+              ((16, 112, 112, 64), 3, 2, 1, "tile"),
+              ((3, 37, 29, 24), 3, 2, 1, "tile"),
+              ((2, 8, 10, 8), 2, 2, 0, "tile"),
+              ((2, 9, 9, 8), 3, 1, 1, "tile"),
+              ((2, 11, 13, 16), (3, 2), (2, 1), (1, 0), "tile"),
+              ((2, 8, 10, 6), 2, 2, 0, "gather"),
+              ((2, 9, 9, 5), 3, 1, 1, "gather")]
+
+
+def _pool_routes(pf):
+    return pf.pool_bwd.tile_launches, pf.pool_bwd.gather_launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1330,26 +1345,125 @@ POOL_CASES = [((2, 112, 112, 64), 3, 2, 1), ((3, 37, 29, 24), 3, 2, 1),
 @pytest.mark.parametrize("case", POOL_CASES, ids=str)
 def test_pool_kernels_match_plain_version(cuda, case, dtype):
     """Windows of ties (post-relu values on a few levels) and NaN entries:
-    out and idx equal, dx bit for bit; one launch each."""
+    out and idx equal, dx bit for bit; one launch each, the backward on
+    the route ``bwd_route`` names."""
     from paddle_tpu_torch.kernels import pool_fused as pf
-    shape, k, s, p = case
+    shape, k, s, p, route = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.relu(torch.round(torch.randn(shape, device=cuda,
                                            generator=gen) * 2) / 2)
     x.view(-1)[::17] = float("nan")
     x = x.to(dtype)
     geo = pf.geometry(shape, k, s, p)
+    assert pf.bwd_route(dtype, geo, True) == route
     before = (pf.pool_fwd.launches, pf.pool_bwd.launches)
+    routes = _pool_routes(pf)
     out, idx = pf.pool_fwd_cuda(x, geo)
     g = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
     dx = pf.pool_bwd_cuda(g, idx, geo, dtype)
     torch.cuda.synchronize()
     assert (pf.pool_fwd.launches, pf.pool_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+    tile = route == "tile"
+    assert _pool_routes(pf) == (routes[0] + tile, routes[1] + (not tile))
     ref_out, ref_idx = pf.pool_fwd_reference(x, geo)
     ref_dx = pf.pool_bwd_reference(g, ref_idx, geo, dtype)
     assert torch.equal(out, ref_out) and torch.equal(idx, ref_idx)
     assert torch.equal(dx, ref_dx)
+    # the other route on the same inputs, uncounted, where it takes them
+    if tile:
+        other = pf.pool_bwd_launch("gather", g, idx, geo, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(other, ref_dx)
+    assert _pool_routes(pf) == (routes[0] + tile, routes[1] + (not tile))
+
+
+def test_pool_bwd_routes_raise_and_never_fall_back(cuda, monkeypatch):
+    """The tile kernel's C entry refuses C = 3 and a misaligned base before
+    any launch, and its wrapper a geometry with no band that fits; a launch
+    error on either route raises from the wrapper the backward calls, and
+    neither the other kernel nor the plain version runs in its place.
+    Nothing is counted."""
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    inputs = {}
+    for c in (3, 8):
+        x = torch.randn(2, 9, 9, c, device=cuda, generator=gen).bfloat16()
+        geo = pf.geometry(x.shape, 3, 2, 1)
+        out, idx = pf.pool_fwd_cuda(x, geo)
+        inputs[c] = (out.clone(), idx, geo, torch.bfloat16)
+    g8, idx8, geo8, _ = inputs[8]
+    buf = torch.empty(g8.numel() + 1, dtype=g8.dtype, device=cuda)
+    g_off = buf[1:].view(g8.shape)
+    g_off.copy_(g8)
+    assert pf.bwd_route(torch.bfloat16, geo8, False) == "gather"
+    counts = (pf.pool_bwd.launches, _pool_routes(pf))
+    with pytest.raises(RuntimeError, match="pool_bwd_tile launch failed"):
+        pf.pool_bwd_launch("tile", *inputs[3])
+    with pytest.raises(RuntimeError, match="pool_bwd_tile launch failed"):
+        pf.pool_bwd_launch("tile", g_off, idx8, geo8, torch.bfloat16)
+    with pytest.raises(ValueError):
+        pf.pool_bwd_launch("scatter", *inputs[8])
+    # a row of g and idx of 5 MB: no band fits, so the tile route refuses
+    wide = torch.randn(1, 4, 20000, 64, device=cuda)
+    geo_w = pf.geometry(wide.shape, 2, 2, 0)
+    out_w, idx_w = pf.pool_fwd_cuda(wide, geo_w)
+    with pytest.raises(ValueError, match="does not fit"):
+        pf.pool_bwd_launch("tile", out_w, idx_w, geo_w, torch.float32)
+
+    def no_fallback(*args):
+        raise AssertionError("a plain version ran in a kernel's place")
+
+    monkeypatch.setattr(pf, "pool_bwd_reference", no_fallback)
+    lib = pf._lib()
+    for c, fn in ((8, "pool_bwd_tile"), (3, "pool_bwd")):
+        assert pf.bwd_route(torch.bfloat16, inputs[c][2], True) == (
+            "tile" if c == 8 else "gather")
+        # cudaErrorLaunchFailure from the named kernel's launch
+        monkeypatch.setattr(lib, fn, lambda *args: 719)
+        with pytest.raises(RuntimeError,
+                           match=f"{fn} launch failed: cudaError_t 719"):
+            pf.pool_bwd_cuda(*inputs[c])
+        monkeypatch.undo()
+        monkeypatch.setattr(pf, "pool_bwd_reference", no_fallback)
+    assert (pf.pool_bwd.launches, _pool_routes(pf)) == counts
+
+
+def test_pool_bwd_tile_entry_checks_the_wrappers_stages(cuda):
+    """The tile kernel's C entry takes the stage size from ``tile_plan``
+    and only checks it: a stage short of the rows it stages, or not a
+    multiple of 16 bytes, is cudaErrorInvalidValue, and two stages past
+    the shared memory a block may take are refused by the runtime; each
+    before any launch, and the next launch at the plan's size still
+    equals the plain version."""
+    import ctypes
+    from paddle_tpu_torch.kernels import pool_fused as pf
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 9, 9, 8, device=cuda, generator=gen).bfloat16()
+    geo = pf.geometry(x.shape, 3, 2, 1)
+    out, idx = pf.pool_fwd_cuda(x, geo)
+    g = torch.randn(out.shape, device=cuda, generator=gen).bfloat16()
+    bh, rows, stage_bytes = pf.tile_plan(geo, 2)
+    table = pf.tile_table(geo, bh, x.device)
+    dx = torch.zeros_like(x)
+    lib = pf._lib()
+
+    def launch(size):
+        return lib.pool_bwd_tile(
+            g.data_ptr(), idx.data_ptr(), dx.data_ptr(),
+            (ctypes.c_int * 12)(*geo), table.data_ptr(), bh, rows, size,
+            pf.DTYPE_CODES[torch.bfloat16],
+            torch.cuda.current_stream().cuda_stream)
+
+    assert launch(stage_bytes - 16) == 1
+    assert launch(stage_bytes + 8) == 1
+    assert launch(pf.TILE_SMEM_BYTES) != 0
+    torch.cuda.synchronize()
+    assert not dx.any()
+    assert launch(stage_bytes) == 0
+    torch.cuda.synchronize()
+    ref = pf.pool_bwd_reference(g, idx, geo, torch.bfloat16)
+    assert torch.equal(dx, ref)
 
 
 def test_pool2d_knob_routes_the_stem_pool_to_the_kernels(cuda):

@@ -7,6 +7,11 @@
   it. Cases: 3x3/s2/p1 (the ResNet stem's), 2x2/s2/p0, odd H and W, bf16
   and float32, windows of ties, and NaN / -inf / finfo.min entries (which
   the kernel never picks).
+- The backward's route rule (``bwd_route``: the tile kernel or the
+  gather) as a pure function, ``band_rows`` (the output rows or columns
+  whose windows cover a band of dx rows or one dx column) against brute
+  force, and the tile kernel's table summed in the kernel's order against
+  the plain version, bit for bit.
 - ``pool2d``'s routing as ``tests/test_kernels_interpret.py:179-213``
   holds the JAX op's: the knob on and off, avg and NCHW pools on the
   plain route.
@@ -110,6 +115,146 @@ def test_pool_fwd_picks_the_first_max_and_never_a_special():
     dx = pf.pool_bwd_reference(torch.tensor([[[[3.0], [5.0]]]]), idx,
                                pf.geometry(x.shape, 2, 2, 0), torch.float32)
     assert dx.flatten().tolist() == [3.0] + [0.0] * 7
+
+
+# -- the backward's routes ----------------------------------------------------
+
+STEM = (256, 112, 112, 64)
+
+
+@pytest.mark.parametrize("shape,cfg,dtype,aligned,route", [
+    (STEM, (3, 2, 1), torch.bfloat16, True, "tile"),
+    (STEM, (3, 2, 1), torch.float32, True, "tile"),
+    (STEM, (2, 2, 0), torch.bfloat16, True, "tile"),
+    ((3, 37, 29, 24), (3, 2, 1), torch.bfloat16, True, "tile"),
+    ((2, 9, 9, 12), (3, 1, 1), torch.float32, True, "tile"),
+    # C not a multiple of the 16-byte vector (8 bf16, 4 float32)
+    ((8, 112, 112, 3), (3, 2, 1), torch.bfloat16, True, "gather"),
+    ((2, 9, 9, 12), (3, 1, 1), torch.bfloat16, True, "gather"),
+    ((2, 9, 9, 6), (3, 2, 1), torch.float32, True, "gather"),
+    # a base off the 16-byte grid
+    (STEM, (3, 2, 1), torch.bfloat16, False, "gather"),
+    # no kernel for float16; g and dx of two dtypes
+    (STEM, (3, 2, 1), torch.float16, True, "gather"),
+    (STEM, (3, 2, 1), None, True, "gather"),
+    # a row of g and idx of 5 MB: one dx row's band fits no stage
+    ((1, 4, 20000, 64), (2, 2, 0), torch.float32, True, "gather"),
+], ids=["stem_bf16", "stem_f32", "k2s2_bf16", "odd_bf16", "s1_f32", "c3",
+        "c12_bf16", "c6_f32", "unaligned", "f16", "mixed", "wide"])
+def test_bwd_route_rule(shape, cfg, dtype, aligned, route):
+    assert pf.bwd_route(dtype, pf.geometry(shape, *cfg), aligned) == route
+
+
+def test_tile_plan_sizes_the_stem_bands():
+    """At the stem, bf16 and float32 alike: 6 dx rows a band over 4 rows
+    of g and idx (86 KB and 115 KB a stage; two stages fit 227 KB). A band
+    of one row that fits no stage has no plan; a band never passes the
+    image. The plan's stage bytes are its rows of g, then of idx."""
+    geo = pf.geometry(STEM, 3, 2, 1)
+    assert pf.tile_plan(geo, 2) == (6, 4, 4 * 56 * 64 * (2 + 4))
+    assert pf.tile_plan(geo, 4) == (6, 4, 4 * 56 * 64 * (4 + 4))
+    most = pf.TILE_SMEM_BYTES // pf.TILE_STAGES
+    assert 4 * 56 * 64 * (4 + 4) <= most
+    assert pf.tile_plan(pf.geometry((1, 4, 20000, 64), 2, 2, 0), 4) is None
+    assert pf.tile_plan(pf.geometry((2, 3, 5, 8), 2, 1, 0), 4) == (
+        3, 2, 2 * 4 * 8 * (4 + 4))
+    # rows of g and idx of 48 KB: a 2-row band (at an even start) stages 2
+    # of them, a 3-row band 3, which do not fit two stages
+    assert pf.tile_plan(pf.geometry((1, 8, 3, 3000), 3, 2, 1), 4)[:2] == \
+        (2, 2)
+
+
+def _covering(x, k, s, p, out):
+    """Brute force: the windows o in [0, out) with x = o * s + i - p for
+    some tap i in [0, k)."""
+    return {(x + p - i) // s for i in range(k)
+            if (x + p - i) % s == 0 and 0 <= (x + p - i) // s < out}
+
+
+@pytest.mark.parametrize("h", [9, 10], ids=["odd", "even"])
+@pytest.mark.parametrize("k,s,p", [(k, s, p) for k in (1, 2, 3)
+                                   for s in (1, 2, 3) for p in range(k)])
+def test_band_rows_against_brute_force(k, s, p, h):
+    """For every band of every height, the rows ``band_rows`` stages hold
+    every window that covers one of its dx rows, and its first and last
+    rows each cover one; a single row's range is exactly its windows."""
+    out = (h + 2 * p - k) // s + 1
+    for bh in range(1, h + 1):
+        for x0 in range(0, h, bh):
+            bx = min(bh, h - x0)
+            lo, end = pf.band_rows(x0, bx, k, s, p, out)
+            need = set().union(*(_covering(x, k, s, p, out)
+                                 for x in range(x0, x0 + bx)))
+            assert 0 <= lo <= end <= out
+            assert need <= set(range(lo, end)), (x0, bx)
+            if need:
+                assert {lo, end - 1} <= need, (x0, bx)
+            else:
+                assert lo == end, (x0, bx)
+    for x in range(h):
+        lo, end = pf.band_rows(x, 1, k, s, p, out)
+        assert set(range(lo, end)) == _covering(x, k, s, p, out)
+
+
+def test_tile_table_holds_bands_rows_and_columns():
+    """kh != kw and sh != sw: the table's band part, row part and column
+    part are ``band_rows`` along their own axis."""
+    shape, kh, kw, sh, sw, ph, pw = (2, 11, 13, 8), 3, 2, 2, 1, 1, 0
+    geo = pf.geometry(shape, (kh, kw), (sh, sw), (ph, pw))
+    n, h, w, c, oh, ow = geo[:6]
+    bh = 3
+    table = pf.tile_table(geo, bh, torch.device("cpu")).tolist()
+    bands = [pf.band_rows(h0, min(bh, h - h0), kh, sh, ph, oh)
+             for h0 in range(0, h, bh)]
+    assert len(table) == len(bands) + h + w
+    assert [tuple(r) for r in table[:len(bands)]] == bands
+    for r, (lo, end) in enumerate(table[len(bands):len(bands) + h]):
+        assert set(range(lo, end)) == _covering(r, kh, sh, ph, oh)
+    for q, (lo, end) in enumerate(table[len(bands) + h:]):
+        assert set(range(lo, end)) == _covering(q, kw, sw, pw, ow)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,k,s,p", [
+    ((2, 9, 11, 8), 3, 2, 1), ((2, 8, 10, 8), 2, 2, 0),
+    ((1, 7, 9, 8), 3, 1, 1), ((2, 9, 8, 8), (3, 2), (2, 1), (1, 0))],
+    ids=["k3s2p1", "k2s2p0", "k3s1p1", "k32s21p10"])
+def test_tile_table_in_kernel_order_equals_the_plain_backward(shape, k, s,
+                                                              p, dtype):
+    """The tile kernel's sum for each dx pixel: over the table's rows of
+    that dx row from the last down (ki ascending), within each over the
+    table's columns from the last down (kj ascending), float32, rounded
+    once. On windows of ties it equals ``pool_bwd_reference`` bit for bit;
+    every row a pixel sums lies in its band's staged rows."""
+    geo = pf.geometry(shape, k, s, p)
+    n, h, w, c, oh, ow = geo[:6]
+    x = torch.from_numpy(_input(shape, "ties", seed=2)).to(dtype)
+    _, idx = pf.pool_fwd_reference(x, geo)
+    g = torch.from_numpy(np.random.RandomState(3).randn(
+        n, oh, ow, c).astype(np.float32)).to(dtype)
+    bh, rows, _ = pf.tile_plan(geo, x.element_size())
+    table = pf.tile_table(geo, bh, torch.device("cpu")).tolist()
+    nb = -(-h // bh)
+    bands, row_t, col_t = table[:nb], table[nb:nb + h], table[nb + h:]
+    assert max(e - lo for lo, e in bands) <= rows
+    dx = torch.empty(n, h, w, c, dtype=dtype)
+    gf = g.float()
+    for hh in range(h):
+        lo_b, end_b = bands[hh // bh]
+        for ww in range(w):
+            acc = torch.zeros(n, c)
+            for oi in range(row_t[hh][1] - 1, row_t[hh][0] - 1, -1):
+                assert lo_b <= oi < end_b
+                for oj in range(col_t[ww][1] - 1, col_t[ww][0] - 1, -1):
+                    hit = idx[:, oi, oj, :] == hh * w + ww
+                    acc[hit] += gf[:, oi, oj, :][hit]
+            dx[:, hh, ww, :] = acc.to(dtype)
+    ref = pf.pool_bwd_reference(g, idx, geo, dtype)
+    assert torch.equal(dx.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32))
 
 
 @pytest.mark.parametrize("knob", ["explicit", "default_on", "default_off"])
