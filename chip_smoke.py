@@ -19,10 +19,12 @@ every bf16 3x3 forward of ResNet-50 to ``csrc/conv_kxk_fwd_tc.cu`` (wgmma)
 and ``conv_fused.dw_route`` every bf16 weight gradient to
 ``csrc/conv_kxk_dw_tc.cu`` (wgmma), the float32 ones to the SIMT
 ``conv_kxk_fwd`` and ``conv_kxk_dw``; ``conv_fused.dx_route`` sends every
-bf16 3x3 dx without a fold to the tensor-core forward at the geometry of
-the stride-1 forward conv it is (flipped taps, C and O swapped; a
-stride-2 one over g dilated by the stride, as the reference dilates it),
-the float32 ones to the SIMT ``conv_kxk_dx``;
+bf16 3x3 dx without a fold to the tensor-core forward, at stride 1 at the
+geometry of the stride-1 forward conv it is (flipped taps, C and O
+swapped), at stride 2 as one such conv of g a phase of dx
+(``conv_fused.dx_phases``: four zero-free convs, each writing its rows and
+columns of dx from its epilogue), the float32 ones to the SIMT
+``conv_kxk_dx``;
 ``tiles.gemm_route`` sends every bf16 1x1 forward and dx (mode "nn", no
 fold: the step's convs have no relu or scale in their epilogue) to the
 same tensor-core forward and every bf16 1x1 weight gradient (mode "tn")
@@ -41,8 +43,9 @@ R1. kernels  each conv kernel against its plain version at every distinct
              a dx that folds; the worst error logged by route); the
              tensor-core dx also dilated, with an uneven padding whose low
              pad of g is negative, at an M that is no multiple of its tile
-             and with a float32 output, and at stride 2 and (2, 1) at a
-             ragged M, an odd H and a float32 output; the
+             and with a float32 output, and by phases at stride 2 and
+             (2, 1) at a ragged M, an odd H and a float32 output, at stride
+             3, with a phase no tap reaches and at O = C = 192; the
              tensor-core forward also
              dilated, at an M that is no multiple of its tile, at O = 192,
              with a float32 output and with the eval chain (scale, bias,
@@ -134,11 +137,13 @@ Back on the ResNet-50 path:
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
              in pure bf16, the pool knob on: the main path's counted step
              (launches as in R2, every 3x3 forward, dx and weight gradient
-             on the tensor cores, the 1x1 GEMMs 72 on the tensor-core
+             on the tensor cores, the 3 stride-2 dx by phases and no g
+             dilated, the 1x1 GEMMs 72 on the tensor-core
              forward and 36 on the tensor-core weight gradient), timed
              steps (imgs/s over all of them), one profiled step each
              (device busy time, idle share over its own wall time; its own
-             count of 104 tensor-core forwards, 52 tensor-core weight
+             count of 113 tensor-core forwards, 4 of them a stride-2 dx,
+             52 tensor-core weight
              gradients and no SIMT conv kernel, and of one pool forward,
              one tile pool backward and no gather, gated); in the
              lowp default a counted step with the pool knob off (no pool
@@ -157,10 +162,11 @@ R4. numbers  each conv and pool kernel row's device time a launch beside
              each conv kernel's rows (the tensor-core ones share their
              kernels between 1x1 and 3x3 convs and the 3x3 dx) from the
              step's calls at batch 256 in bf16 launched on each route in
-             four profiled sessions, each tensor-core row beside its SIMT
+             five profiled sessions, each tensor-core row beside its SIMT
              twin on the same calls (``simt_ms``), the dx at stride 1 and
-             at stride 2 apart on either route, and the stride-2
-             tensor-core dx's dilation of g apart from its kernel.
+             at stride 2 apart on either route, and the stride-2 dx by
+             phases beside the tensor-core route over the dilated g on the
+             same calls, its kernel and its dilation of g apart.
 
 Then the serving path:
 
@@ -344,6 +350,13 @@ KERNELS = {
     # the same TPU kernel's tensor-core route: the tensor-core conv forward
     # at the geometry of the stride-1 forward conv a dx without a fold is
     "convkxk_dx_tc": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
+        "replaces": "paddle_tpu/kernels/conv_fused.py:425",
+    },
+    # and its route at a stride above 1: the same kernel's phase
+    # instantiation, one zero-free conv of g a phase of dx
+    "convkxk_dx_tc_phase": {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/conv_kxk_fwd_tc.cu",
         "replaces": "paddle_tpu/kernels/conv_fused.py:425",
@@ -1864,13 +1877,14 @@ def phase_train_numbers(model32, model_bf, batch, dev, seed):
 # -- ResNet-50 (R1-R4) ----------------------------------------------------------
 
 RESNET_KERNELS = ("brgemm", "brgemm_tc_fwd", "brgemm_tc_dw", "convkxk",
-                  "convkxk_tc", "convkxk_dx", "convkxk_dx_tc", "convkxk_dw",
-                  "convkxk_dw_tc")
+                  "convkxk_tc", "convkxk_dx", "convkxk_dx_tc",
+                  "convkxk_dx_tc_phase", "convkxk_dw", "convkxk_dw_tc")
 # each tensor-core row's SIMT twin: the same function, by another route. A
 # row is named <twin>_<route>, the route the wrapper's rule names
 # (``tiles.gemm_route``, ``conv_fused.kxk_fwd_route``, ``dx_route``,
 # ``dw_route``) and counts in ``<wrapper>.<route>_launches``
 TC_TWIN = {"convkxk_tc": "convkxk", "convkxk_dx_tc": "convkxk_dx",
+           "convkxk_dx_tc_phase": "convkxk_dx",
            "convkxk_dw_tc": "convkxk_dw", "brgemm_tc_fwd": "brgemm",
            "brgemm_tc_dw": "brgemm"}
 # launches of a bf16 training step of ResNet-50 with the conv and pool
@@ -1886,15 +1900,20 @@ R_EVAL = {"brgemm": 36, "convkxk": 16, "convkxk_dx": 0, "convkxk_dw": 0,
           "pool_fwd": 1, "pool_bwd": 0, "pool_bwd_tile": 0,
           "pool_bwd_gather": 0}
 # of those, the launches each tensor-core row takes when the convs see
-# bf16: every 3x3 forward, dx and weight gradient (the 3 stride-2 dx, in
-# the first bottleneck of stages 2-4, over g dilated by the stride); the
-# 1x1 forwards and dx are mode "nn" without a fold (no conv of the
-# training step has a relu or a scale in its epilogue: BatchNorm runs
-# apart from it, so no dx folds), their weight gradients mode "tn"
-TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dx_tc": 16, "convkxk_dw_tc": 16,
+# bf16: every 3x3 forward, dx and weight gradient (the 13 stride-1 dx as
+# one conv, the 3 stride-2 dx, in the first bottleneck of stages 2-4, by
+# phases); the 1x1 forwards and dx are mode "nn" without a fold (no conv
+# of the training step has a relu or a scale in its epilogue: BatchNorm
+# runs apart from it, so no dx folds), their weight gradients mode "tn"
+TC_PER_STEP = {"convkxk_tc": 16, "convkxk_dx_tc": 13,
+               "convkxk_dx_tc_phase": 3, "convkxk_dw_tc": 16,
                "brgemm_tc_fwd": 72, "brgemm_tc_dw": 36}
-TC_EVAL = {"convkxk_tc": 16, "convkxk_dx_tc": 0, "convkxk_dw_tc": 0,
-           "brgemm_tc_fwd": 36, "brgemm_tc_dw": 0}
+TC_EVAL = {"convkxk_tc": 16, "convkxk_dx_tc": 0, "convkxk_dx_tc_phase": 0,
+           "convkxk_dw_tc": 0, "brgemm_tc_fwd": 36, "brgemm_tc_dw": 0}
+# the kernel launches one call of a tensor-core row makes where it is not
+# one: a stride-2 3x3 dx (padding 1) by phases runs its 4 phases, each with
+# taps (``conv_fused.dx_phases``)
+TC_RECORDS = {"convkxk_dx_tc_phase": 4}
 # the step with the pool knob off
 R_POOL_OFF = dict(R_PER_STEP, pool_fwd=0, pool_bwd=0, pool_bwd_tile=0)
 # the pool kernel rows, each counted under its own name in R_PER_STEP
@@ -1915,6 +1934,7 @@ R_SYMBOLS = {"brgemm": "DenseA", "brgemm_tc_fwd": "conv_kxk_fwd_tc",
              "brgemm_tc_dw": "conv_kxk_dw_tc", "convkxk": "XRows",
              "convkxk_tc": "conv_kxk_fwd_tc", "convkxk_dx": "DyRows",
              "convkxk_dx_tc": "conv_kxk_fwd_tc",
+             "convkxk_dx_tc_phase": "conv_kxk_fwd_tc",
              "convkxk_dw": "XCols", "convkxk_dw_tc": "conv_kxk_dw_tc",
              "pool_fwd": "pool_fwd_kernel",
              "pool_bwd_gather": "pool_bwd_kernel",
@@ -1925,13 +1945,16 @@ FWD_TC_KERNEL = "conv_kxk_fwd_tc_kernel"
 DW_TC_KERNEL = "conv_kxk_dw_tc_kernel"
 # each tensor-core row's kernel, one a launch
 TC_KERNEL = {"convkxk_tc": FWD_TC_KERNEL, "convkxk_dx_tc": FWD_TC_KERNEL,
+             "convkxk_dx_tc_phase": FWD_TC_KERNEL,
              "brgemm_tc_fwd": FWD_TC_KERNEL, "convkxk_dw_tc": DW_TC_KERNEL,
              "brgemm_tc_dw": DW_TC_KERNEL}
-# a profiled bf16 step's count of each: the 16 3x3 forwards, 16 3x3 dx and
-# 72 1x1 "nn" GEMMs on the tensor-core forward, the 16 3x3 and 36 1x1
-# weight gradients on the tensor-core weight gradient; each SIMT twin the
-# launches its tensor-core rows leave it (none)
-TC_IN_STEP = {**{sym: sum(n for r, n in TC_PER_STEP.items()
+# a profiled bf16 step's count of each: the 16 3x3 forwards, 13 stride-1
+# 3x3 dx, 3 x 4 phases of the stride-2 ones and 72 1x1 "nn" GEMMs on the
+# tensor-core forward (113), the 16 3x3 and 36 1x1 weight gradients on the
+# tensor-core weight gradient; each SIMT twin the launches its tensor-core
+# rows leave it (none)
+TC_IN_STEP = {**{sym: sum(n * TC_RECORDS.get(r, 1)
+                          for r, n in TC_PER_STEP.items()
                           if TC_KERNEL[r] == sym)
                  for sym in (FWD_TC_KERNEL, DW_TC_KERNEL)},
               **{R_SYMBOLS[simt]: R_PER_STEP[simt] - sum(
@@ -2019,6 +2042,7 @@ def r_counters():
             convkxk_simt=(cf.convkxk_cuda, "simt_launches"),
             convkxk_dx=(cf.convkxk_dx, "launches"),
             convkxk_dx_tc=(cf.convkxk_dx_cuda, "tc_launches"),
+            convkxk_dx_tc_phase=(cf.convkxk_dx_cuda, "tc_phase_launches"),
             convkxk_dx_simt=(cf.convkxk_dx_cuda, "simt_launches"),
             convkxk_dw=(cf.convkxk_dw, "launches"),
             convkxk_dw_tc=(cf.convkxk_dw_cuda, "tc_launches"),
@@ -2165,14 +2189,16 @@ def want_route(call, dtype, folded, stride):
     a ResNet-50 shape (C and O multiples of 64) with the conv's ``stride``:
     float32 on SIMT; in bf16 the 3x3 forward and weight gradient on the
     tensor cores, the 1x1 forward and weight gradient on the tensor-core
-    conv kernels, the 1x1 dx with them too and the 3x3 dx, at any
-    ``stride``, on the tensor-core forward unless it folds the cotangent
-    (``folded``: a relu mask or a scale); a folding dx stays on SIMT."""
+    conv kernels, the 1x1 dx with them too and the 3x3 dx on the
+    tensor-core forward unless it folds the cotangent (``folded``: a relu
+    mask or a scale), at ``stride`` 1 as one conv, at 2 by phases; a
+    folding dx stays on SIMT."""
     if dtype != torch.bfloat16:
         return "simt"
     return {"convkxk": "tc", "convkxk_dw": "tc", "brgemm_fwd": "tc_fwd",
             "brgemm_dx": "simt" if folded else "tc_fwd",
-            "convkxk_dx": "simt" if folded else "tc",
+            "convkxk_dx": "simt" if folded else
+            "tc" if stride == 1 else "tc_phase",
             "brgemm_dw": "tc_dw"}[call]
 
 
@@ -2300,37 +2326,48 @@ def dw_tc_cases(dev, seed):
 
 
 # R1's further tensor-core dx cases (bf16, no fold): (case, x's (h, w, c),
-# o, batch, padding, dilation, x_dtype, stride): a dilated conv (padding
-# 2), an uneven padding whose low pad of g is negative (3 - 2 = 1 row past
-# the top of x: (k - 1) * d - p0 = -1) with C != O, an M that is no
-# multiple of the 128-row tile (3 x 9 x 9 = 243), and a float32 dx; at
-# stride 2 a ragged M (3 x 9 x 9 again, over a 9 x 9 dilated g), an odd H
-# with C != O, a stride of (2, 1) and a float32 dx
+# o, batch, padding, dilation, x_dtype, stride, the route ``dx_route``
+# names): a dilated conv (padding 2), an uneven padding whose low pad of g
+# is negative (3 - 2 = 1 row past the top of x: (k - 1) * d - p0 = -1)
+# with C != O, an M that is no multiple of the 128-row tile (3 x 9 x 9 =
+# 243), and a float32 dx; by phases at stride 2 a ragged M (3 x 5 x 5 =
+# 75 a phase), an odd H with C != O, a stride of (2, 1), a float32 dx, a
+# dilation of 2 (padding 2), whose phases but (0, 0) no tap reaches, and O
+# = C = 192 (the 64-column tile); at stride 3 with C != O
 R1_DX_TC_CASES = [
     ("dilated", (28, 28, 64), 64, R1_BATCH, ((2, 2), (2, 2)), 2, None,
-     (1, 1)),
+     (1, 1), "tc"),
     ("uneven_pad", (14, 13, 64), 128, R1_BATCH, ((3, 0), (0, 2)), 1, None,
-     (1, 1)),
-    ("ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None, (1, 1)),
+     (1, 1), "tc"),
+    ("ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None, (1, 1),
+     "tc"),
     ("f32_out", (28, 28, 128), 128, R1_BATCH, ((1, 1), (1, 1)), 1,
-     torch.float32, (1, 1)),
-    ("s2_ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None, (2, 2)),
+     torch.float32, (1, 1), "tc"),
+    ("s2_ragged_m", (9, 9, 64), 64, 3, ((1, 1), (1, 1)), 1, None, (2, 2),
+     "tc_phase"),
     ("s2_odd_h", (27, 27, 128), 64, R1_BATCH, ((1, 1), (1, 1)), 1, None,
-     (2, 2)),
-    ("s21", (14, 14, 64), 128, R1_BATCH, ((1, 1), (1, 1)), 1, None, (2, 1)),
+     (2, 2), "tc_phase"),
+    ("s21", (14, 14, 64), 128, R1_BATCH, ((1, 1), (1, 1)), 1, None, (2, 1),
+     "tc_phase"),
     ("s2_f32_out", (28, 28, 128), 128, R1_BATCH, ((1, 1), (1, 1)), 1,
-     torch.float32, (2, 2)),
+     torch.float32, (2, 2), "tc_phase"),
+    ("s2_empty_phase", (28, 28, 64), 64, R1_BATCH, ((2, 2), (2, 2)), 2,
+     None, (2, 2), "tc_phase"),
+    ("s2_o192", (14, 14, 192), 192, R1_BATCH, ((1, 1), (1, 1)), 1, None,
+     (2, 2), "tc_phase"),
+    ("s3", (20, 21, 64), 128, R1_BATCH, ((1, 1), (1, 1)), 1, None, (3, 3),
+     "tc_phase"),
 ]
 
 
 def dx_tc_cases(dev, seed):
     """R1's further bf16 cases of the tensor-core dx through
-    ``convkxk_dx_cuda`` (route asserted) against the plain version, at the
-    backward's gate, at each case's stride."""
+    ``convkxk_dx_cuda`` (the route each case names asserted) against the
+    plain version, at the backward's gate, at each case's stride."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     _, b_tol = R_TOL[torch.bfloat16]
     out = []
-    for case, (h, wd, c), o, batch, pad, dil, x_dtype, stride in \
+    for case, (h, wd, c), o, batch, pad, dil, x_dtype, stride, want in \
             R1_DX_TC_CASES:
         gen = torch.Generator(device=dev).manual_seed(seed + 4)
         x_shape = (batch, h, wd, c)
@@ -2348,7 +2385,7 @@ def dx_tc_cases(dev, seed):
         ref = cf.convkxk_dx_reference(*args)
         diff = (got.float() - ref.float()).abs().max().item()
         rel = diff / max(ref.float().abs().max().item(), 1e-30)
-        ok = route == "tc" and bool(torch.isfinite(got).all()) and \
+        ok = route == want and bool(torch.isfinite(got).all()) and \
             rel <= b_tol and got.dtype == ref.dtype and \
             got.shape == ref.shape
         rec = {"kernel": "convkxk_dx", "route": route, "case": case,
@@ -2609,17 +2646,37 @@ def phase_resnet_train(dev, seed):
     return rec
 
 
+@contextlib.contextmanager
+def dilations():
+    """The strides above (1, 1) at which ``conv_fused.dilate_cotangent``
+    dilates a g while the block runs (a list it fills)."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    seen, dilate = [], cf.dilate_cotangent
+
+    def counted(g, stride):
+        if tuple(stride) != (1, 1):
+            seen.append(tuple(stride))
+        return dilate(g, stride)
+
+    cf.dilate_cotangent = counted
+    try:
+        yield seen
+    finally:
+        cf.dilate_cotangent = dilate
+
+
 def phase_resnet_bench(dev, seed):
     """R3 + R4: the bench step (``paddle_tpu_torch/bench.py``) at batch
     256 x 224 in bf16 with the conv and pool knobs on
     (``PADDLE_TPU_POOL_FUSED`` set), lowp default then ``lowp=""``. In
     each: a warm-up step; the counted step of the main path (counts set to
     0 just before, read just after: 108/16/16/16 conv, the 16 3x3
-    forwards, the 16 3x3 dx (stride 1 and 2) and the 16 weight gradients
+    forwards, the 16 3x3 dx (13 at stride 1 as one conv, 3 at stride 2 by
+    phases, no g dilated: ``dilations``) and the 16 weight gradients
     on the tensor cores, the 108 1x1 GEMMs 72 on the tensor-core forward
     and 36 on the tensor-core weight gradient (``routes``), 1/1 pool);
     timed steps (imgs/s over all of them); one profiled step (device busy
-    time, idle share over its own wall time, ``TC_IN_STEP``'s 104
+    time, idle share over its own wall time, ``TC_IN_STEP``'s 113
     tensor-core forwards, 52 tensor-core weight-gradient GEMMs and no
     SIMT brgemm, 3x3 forward, dx or weight gradient in its own count,
     and in the lowp default each
@@ -2645,12 +2702,16 @@ def phase_resnet_bench(dev, seed):
         losses = [step().item()]
         torch.cuda.synchronize()
         zero_r_counts()
-        losses.append(step().item())               # the main path's step
-        torch.cuda.synchronize()
+        with dilations() as dilated:
+            losses.append(step().item())           # the main path's step
+            torch.cuda.synchronize()
         counts = r_counts()
         if counts != routes(torch.bfloat16):
             fail("R3", f"{label}: launches in the step {counts}, expected "
                        f"{routes(torch.bfloat16)}")
+        if dilated:
+            fail("R3", f"{label}: the step dilated g at strides {dilated}: "
+                       f"its stride-2 dx must run by phases")
         rec = {}
         if lowp:
             set_resnet_knobs(pool=False)
@@ -2784,13 +2845,16 @@ def library_call(name, shape, x, w, g):
 
 
 # R4's timed parts: (row, route, the ``conv_calls`` calls it launches on
-# that route) over the bf16 step's calls, and the four profiled sessions
+# that route) over the bf16 step's calls, and the five profiled sessions
 # that run them, in each of which no part's kernel symbol repeats. A
 # tensor-core row shares its kernel with another (the 3x3 forward's runs
 # the 1x1 "nn" GEMMs and the 3x3 dx, the weight gradient's the "tn" ones),
-# so the step's own profile cannot time it apart. The route "dilate" runs
-# what the tensor-core dx runs before its kernel at stride 2 alone
-# (``conv_fused.dilate_cotangent``: a zero fill and a strided copy)
+# so the step's own profile cannot time it apart. A part whose route is
+# not its row's (``row_route``) is a yardstick on the row's calls, not in
+# the row's time: beside the stride-2 dx by phases, the tensor-core dx
+# over g dilated by the stride ("tc" at stride 2), which the phases
+# replaced on the step's path, and that dilation alone ("dilate":
+# ``conv_fused.dilate_cotangent``, a zero fill and a strided copy)
 R4_PARTS = {
     "brgemm_nn": ("brgemm", "simt", ("brgemm_fwd", "brgemm_dx")),
     "brgemm_tn": ("brgemm", "simt", ("brgemm_dw",)),
@@ -2802,22 +2866,26 @@ R4_PARTS = {
     "convkxk_dx_s1": ("convkxk_dx", "simt", ("convkxk_dx",)),
     "convkxk_dx_s2": ("convkxk_dx", "simt", ("convkxk_dx",)),
     "convkxk_dx_tc_s1": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
-    "convkxk_dx_tc_s2": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
-    "convkxk_dx_tc_dilate": ("convkxk_dx_tc", "dilate", ("convkxk_dx",)),
+    "convkxk_dx_tc_phase": ("convkxk_dx_tc_phase", "tc_phase",
+                            ("convkxk_dx",)),
+    "convkxk_dx_tc_s2": ("convkxk_dx_tc_phase", "tc", ("convkxk_dx",)),
+    "convkxk_dx_tc_dilate": ("convkxk_dx_tc_phase", "dilate",
+                             ("convkxk_dx",)),
     "convkxk_dw": ("convkxk_dw", "simt", ("convkxk_dw",)),
     "convkxk_dw_tc": ("convkxk_dw_tc", "tc", ("convkxk_dw",)),
 }
 # the conv strides whose calls a part takes (all where it is not named):
-# the dx is timed at stride 1 and at stride 2 apart on either route
+# the dx is timed at stride 1 and at stride 2 apart on every route
 R4_STRIDES = {"convkxk_dx_s1": (1,), "convkxk_dx_s2": (2,),
-              "convkxk_dx_tc_s1": (1,), "convkxk_dx_tc_s2": (2,),
-              "convkxk_dx_tc_dilate": (2,)}
+              "convkxk_dx_tc_s1": (1,), "convkxk_dx_tc_phase": (2,),
+              "convkxk_dx_tc_s2": (2,), "convkxk_dx_tc_dilate": (2,)}
 R4_SESSIONS = (("brgemm_nn", "convkxk_tc", "convkxk_dw_tc", "convkxk",
                 "convkxk_dw", "convkxk_dx_s1"),
                ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw",
                 "convkxk_dx_tc_dilate"),
                ("convkxk_dx_tc_s1", "convkxk_dx_s2"),
-               ("convkxk_dx_tc_s2",))
+               ("convkxk_dx_tc_s2",),
+               ("convkxk_dx_tc_phase",))
 # the kernel symbols a part's records are read by where they are not its
 # row's (``R_SYMBOLS``): the dilation's bf16 zero fill and its copy (the
 # lead-in's fill is float32, and no other part of its session copies)
@@ -2845,18 +2913,37 @@ def part_symbols(part):
 def r4_row_parts(key):
     """The R4 parts whose calls row ``key``'s numbers are means over: all
     of the row's, so a tensor-core row's are the calls a bf16 step
-    launches on it (the dx's with the dilation at stride 2) and a SIMT
+    launches on it (the stride-2 dx's beside their yardsticks) and a SIMT
     twin's, which the step launches nowhere, all the step's calls of its
     kernel."""
     return [p for p in R4_PARTS if R4_PARTS[p][0] == key]
 
 
+def row_route(row):
+    """The route of kernel row ``row``'s launches: the rest of its name
+    after its SIMT twin's (``TC_TWIN``), "simt" for a SIMT twin."""
+    return row[len(TC_TWIN[row]) + 1:] if row in TC_TWIN else "simt"
+
+
+def part_is_own(part):
+    """Whether the R4 part ``part`` times its row's own route, not a
+    yardstick on the row's calls."""
+    row, route, _ = R4_PARTS[part]
+    return route == row_route(row)
+
+
 def r4_records(call, route, shape, batch, dev):
     """Kernel records a profile shows for one launch of ``call`` on
-    ``route``: a weight gradient whose K is split adds its reduction."""
+    ``route``: a weight gradient whose K is split adds its reduction; a dx
+    by phases has one a phase with taps."""
+    h, c, o, k, s = shape
+    if route == "tc_phase":
+        from paddle_tpu_torch.kernels import conv_fused as cf
+        return sum(p.runs for p in cf.dx_phases(
+            (batch, h, h, c), (o, c, k, k), (s, s), ((1, 1), (1, 1)),
+            (1, 1)))
     if not call.endswith("_dw"):
         return 1
-    h, c, o, k, s = shape
     oh = (h - 1) // s + 1
     m, kk = c * k * k, batch * oh * oh
     from paddle_tpu_torch.kernels import tiles
@@ -2875,13 +2962,15 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     events, ``iters`` calls a distinct shape, weighted by how often the
     step runs it). Every conv kernel's rows are timed on the step's own
     calls at batch 256 in bf16, each route through its launch function
-    (``R4_PARTS``, four profiled sessions, ``R4_SESSIONS``): the
+    (``R4_PARTS``, five profiled sessions, ``R4_SESSIONS``): the
     tensor-core rows, whose kernels the 1x1 and 3x3 convs and the 3x3 dx
     share, and the SIMT twins, which the bf16 step launches nowhere
-    (``launches_per_step`` 0, ``timed_on``). The tensor-core dx row's time
-    is its kernel's at stride 1 and 2 and the stride-2 calls' dilation of
-    g, each apart in ``parts_ms`` and ``parts`` (with each part's own
-    bound, plain and library means and worst error). Each tensor-core row
+    (``launches_per_step`` 0, ``timed_on``). A row's time is its own
+    parts' (``part_is_own``); the stride-2 dx by phases also carries its
+    yardsticks on the same calls, the tensor-core dx over the dilated g
+    and that dilation, as ``yardstick_ms`` (their sum), each part apart in
+    ``parts_ms`` and ``parts`` (with each part's own bound, plain and
+    library means and worst error). Each tensor-core row
     also carries its twin's time on the same calls as ``simt_ms``. Each
     tensor-core call is held against its plain version on those inputs
     (``R_TOL``'s bf16 gates). A part fails unless its session keeps every
@@ -2941,7 +3030,8 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                     fail("R4", f"{call} {shape} on {route} at batch "
                                f"{R3_BATCH}: |kernel-plain| / max|plain| "
                                f"{rel:.3e} against its {tol:g} gate")
-                checked[row] = max(checked.get(row, 0.0), rel)
+                if part_is_own(part):
+                    checked[row] = max(checked.get(row, 0.0), rel)
                 part_err[part] = max(part_err.get(part, 0.0), rel)
                 del got, ref
                 if row.startswith("brgemm"):
@@ -3000,7 +3090,8 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
             fail("R4", f"{key}: {a['n']} calls of its parts in the shape "
                        f"table, {calls} in a bf16 step")
         mine = r4_row_parts(key)
-        ms = sum(totals[p] for p in mine) / calls
+        own = [p for p in mine if part_is_own(p)]
+        ms = sum(totals[p] for p in own) / calls
         rec = {"ms": ms, "launches_per_step": launches,
                "bound_ms": a["bound_ms"] / calls,
                "bound_by": "bytes" if a["bytes_bound"] * 2 > calls
@@ -3021,6 +3112,9 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                    rel_err_at_batch=part_err.get(p)) for p in mine}}
         if not launches:
             rec["timed_on"] = "bf16, the step's calls, on the SIMT route"
+        if own != mine:
+            rec["yardstick_ms"] = sum(totals[p] for p in mine
+                                      if p not in own) / calls
         if key in by_shape:
             rec["by_shape"] = by_shape[key]
             for r in by_shape[key]:
@@ -3031,7 +3125,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                         f"bound")
         if key in TC_TWIN:
             # the SIMT parts over the same calls as this row's kernel parts
-            twin = [q for p in mine if R4_PARTS[p][1] != "dilate"
+            twin = [q for p in own
                     for q, (row, _, cs) in R4_PARTS.items()
                     if row == TC_TWIN[key] and cs == R4_PARTS[p][2]
                     and R4_STRIDES.get(q) == R4_STRIDES.get(p)]
@@ -3047,7 +3141,10 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
             f"{rec['bound_ms'] / ms * 100:.2f}% of the kernel's time"
             + (f"; SIMT on the same calls {rec['simt_ms']:.3f} ms (device)"
                f"; worst |kernel-plain| / max|plain| on them "
-               f"{rec['rel_err_at_batch']:.3e}" if key in TC_TWIN else ""))
+               f"{rec['rel_err_at_batch']:.3e}" if key in TC_TWIN else "")
+            + (f"; its yardsticks on them {rec['yardstick_ms']:.3f} ms "
+               f"(device), {rec['yardstick_ms'] / ms:.2f}x" if own != mine
+               else ""))
         if len(mine) > 1:
             for p in mine:
                 q = rec["parts"][p]
@@ -3063,14 +3160,13 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
 
     def kernel_ms(row):
         # a tensor-core row's kernel time over the bf16 step's calls
-        return sum(totals[p] for p in r4_row_parts(row)
-                   if R4_PARTS[p][1] != "dilate")
+        return sum(totals[p] for p in r4_row_parts(row) if part_is_own(p))
 
     for sym in (FWD_TC_KERNEL, DW_TC_KERNEL):
         rows = [r for r in TC_KERNEL if TC_KERNEL[r] == sym]
         log(f"[R4] {sym}: {in_step[rows[0]]['device_ms']:.3f} ms over "
             f"{in_step[rows[0]]['count']} records in the profiled step; "
-            f"timed apart (the dx without its dilation): " + ", ".join(
+            f"timed apart: " + ", ".join(
                 f"{r} {kernel_ms(r):.3f} ms" for r in rows))
     return numbers
 
@@ -4292,6 +4388,9 @@ def main(argv=None):
                 rec["launches_by_path"] = by_path[name]
             if name in TC_TWIN:
                 rec["simt_ms"] = report["resnet_numbers"][name]["simt_ms"]
+            if "yardstick_ms" in report["resnet_numbers"][name]:
+                rec["yardstick_ms"] = \
+                    report["resnet_numbers"][name]["yardstick_ms"]
         elif name in pool_numbers:
             rec.update({k: pool_numbers[name][k] for k in keys})
             rec["call_ms"] = pool_numbers[name]["call_ms"]

@@ -45,8 +45,20 @@
 //     ResNet-50) stays in L2;
 //   - the epilogue runs on the accumulator fragments: each thread applies
 //     the chain to its column pairs and stores them as bf16x2 or float2.
+//
+// The same kernel computes a strided conv's input gradient without a fold
+// by phases (conv_kxk_dx_phase_tc below; the Pallas _convkxk_dx, pallas_call
+// at paddle_tpu/kernels/conv_fused.py:425, takes the dilated g instead):
+// dx's rows a + sh*i and columns b + sw*j (conv_fused.py's dx_phases, its
+// "tc_phase" route) are the stride-1 forward conv of g itself with the taps
+// that reach them, flipped, C and O swapped, so no product reads a zero
+// between g's rows. Its instantiation with kPhase set maps output row m =
+// (n, i, j) to dx's pixel (n, a + sh*i, b + sw*j) in the epilogue, decoded
+// once a thread row; the rest of the kernel is the forward's, and the
+// instantiations without it compile as before.
 // Left for later work: TMA with a producer warp, a wgmma kept in flight
-// across stages, and an epilogue overlapped with the next tile's loads.
+// across stages, an epilogue overlapped with the next tile's loads, and
+// one launch over every phase.
 
 #include "igemm.cuh"
 #include "igemm_tc.cuh"
@@ -75,6 +87,12 @@ struct Geo {
   int n, h, w, c, o, kh, kw, oh, ow, sh, sw, ph, pw, dh, dw;
 };
 
+// Where a phase of a strided dx writes: dx is [n, h, w, C], the phase's
+// output row (n, i, j) is dx's pixel (n, a + sh*i, b + sw*j).
+struct PhaseOut {
+  int h, w, a, b, sh, sw;
+};
+
 template <int BN>
 struct Tiles {
   static constexpr int kA = kBM * kRowBytes;           // x: K-major
@@ -87,10 +105,11 @@ struct Tiles {
 };
 
 // The epilogue chain of igemm::Epilogue::store on two neighbouring
-// columns (n even), stored as one bf16x2 or float2.
-__device__ __forceinline__ void store_pair(const igemm::Epilogue& ep, int m,
-                                           int n, float v0, float v1) {
-  const long long i = static_cast<long long>(m) * ep.ldo + n;
+// columns (n even) at element i of the output, stored as one bf16x2 or
+// float2.
+__device__ __forceinline__ void store_at(const igemm::Epilogue& ep,
+                                         long long i, int n, float v0,
+                                         float v1) {
   if (ep.scale != nullptr) {
     v0 = __fmul_rn(v0, ep.scale[n]);
     v1 = __fmul_rn(v1, ep.scale[n + 1]);
@@ -116,11 +135,17 @@ __device__ __forceinline__ void store_pair(const igemm::Epilogue& ep, int m,
         make_float2(v0, v1);
 }
 
-template <int BN>
+// store_at on row m of a contiguous [M, ldo] output.
+__device__ __forceinline__ void store_pair(const igemm::Epilogue& ep, int m,
+                                           int n, float v0, float v1) {
+  store_at(ep, static_cast<long long>(m) * ep.ldo + n, n, v0, v1);
+}
+
+template <int BN, bool kPhase>
 __global__ void __launch_bounds__(kThreads, 2)
     conv_kxk_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ wk, Geo g,
-                           int M, igemm::Epilogue ep) {
+                           int M, igemm::Epilogue ep, PhaseOut po) {
   using T = Tiles<BN>;
   extern __shared__ uint8_t smem_raw[];
   const typename T::Ring ring(smem_raw);
@@ -245,27 +270,111 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int m = mrow + 8 * r;
     if (m >= M) continue;
+    if constexpr (kPhase) {
+      // dx's pixel of output row (n, i, j), once a row (a separate branch:
+      // the forward's instantiations keep the SASS they had without it)
+      const int hw = g.oh * g.ow;
+      const int n = m / hw;
+      const int rest = m - n * hw;
+      const int i = rest / g.ow;
+      const int pix = (n * po.h + po.a + po.sh * i) * po.w + po.b +
+                      po.sw * (rest - i * g.ow);
+      const long long base = static_cast<long long>(pix) * ep.ldo;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      store_pair(ep, m, n0 + 8 * j + 2 * (lane & 3), acc[4 * j + 2 * r],
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        store_at(ep, base + col, col, acc[4 * j + 2 * r],
                  acc[4 * j + 2 * r + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        store_pair(ep, m, n0 + 8 * j + 2 * (lane & 3), acc[4 * j + 2 * r],
+                   acc[4 * j + 2 * r + 1]);
+    }
   }
 }
 
-template <int BN>
+template <int BN, bool kPhase>
 int launch(const void* x, const void* wk, const igemm::Epilogue& ep,
-           const Geo& g, int M, cudaStream_t s) {
+           const Geo& g, int M, const PhaseOut& po, cudaStream_t s) {
   constexpr int smem = Tiles<BN>::Ring::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kxk_fwd_tc_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      conv_kxk_fwd_tc_kernel<BN, kPhase>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((M + kBM - 1) / kBM) *
                           static_cast<unsigned>(g.o / BN);
-  conv_kxk_fwd_tc_kernel<BN><<<blocks, kThreads, smem, s>>>(
+  conv_kxk_fwd_tc_kernel<BN, kPhase><<<blocks, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wk), g, M, ep);
+      static_cast<const __nv_bfloat16*>(wk), g, M, ep, po);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPhase>
+int launch_any(const void* x, const void* wk, const igemm::Epilogue& ep,
+               const Geo& g, int M, const PhaseOut& po, cudaStream_t s) {
+  if (g.o % 128 == 0) return launch<128, kPhase>(x, wk, ep, g, M, po, s);
+  return launch<64, kPhase>(x, wk, ep, g, M, po, s);
+}
+
+Geo to_geo(const int* v) {
+  return Geo{v[0], v[1], v[2],  v[3],  v[4],  v[5],  v[6], v[7],
+             v[8], v[9], v[10], v[11], v[12], v[13], v[14]};
+}
+
+// What the kernel does not take at geometry g: the forward's checks of
+// conv_kxk_fwd_tc below, but for the types and bases.
+bool refuses(const Geo& g) {
+  const long long m = static_cast<long long>(g.n) * g.oh * g.ow;
+  const long long pixels = static_cast<long long>(g.n) * g.h * g.w;
+  const long long blocks =
+      (m + kBM - 1) / kBM * (g.o > 0 ? g.o / 64 : 0);
+  return g.n < 0 || g.h <= 0 || g.w <= 0 || g.c <= 0 || g.o <= 0 ||
+         g.c % 64 != 0 || g.o % 64 != 0 || g.kh <= 0 || g.kw <= 0 ||
+         g.oh < 0 || g.ow < 0 || g.sh <= 0 || g.sw <= 0 || g.dh <= 0 ||
+         g.dw <= 0 || m > (1 << 30) || pixels > (1 << 30) ||
+         g.ph < -kReach || g.ph > kReach || g.pw < -kReach ||
+         g.pw > kReach || static_cast<long long>(g.oh) * g.sh > kReach ||
+         static_cast<long long>(g.ow) * g.sw > kReach ||
+         static_cast<long long>(g.kh) * g.dh > kReach ||
+         static_cast<long long>(g.kw) * g.dw > kReach ||
+         static_cast<long long>(g.kh) * g.kw * g.c > (1 << 30) ||
+         blocks > 0x7fffffffLL;
+}
+
+bool misaligned(const void* a, const void* b, const void* c) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) %
+          16) != 0;
+}
+
+// One axis of a dx phase (conv_fused.py's dx_phases): of the k taps of
+// dilation d over a low padding p, those whose products reach dx's
+// positions a + s*i are the t with (a + p - t*d) divisible by s. Reads
+// them from the largest down, as the phase conv's taps; returns their
+// count, the phase conv's low padding (the least offset, negated) and its
+// dilation d / gcd(s, d).
+struct PhaseAxis {
+  int taps, pad, dil;
+};
+
+PhaseAxis phase_axis(int a, int k, int s, int p, int d) {
+  PhaseAxis ax{0, 0, 1};
+  for (int t = k - 1; t >= 0; --t) {
+    const long long r = static_cast<long long>(a) + p -
+                        static_cast<long long>(t) * d;
+    if (r % s != 0) continue;
+    if (ax.taps++ == 0) ax.pad = static_cast<int>(-(r / s));
+  }
+  int x = s, y = d;
+  while (y != 0) {
+    const int t = x % y;
+    x = y;
+    y = t;
+  }
+  if (ax.taps > 0) ax.dil = d / x;
+  return ax;
 }
 
 }  // namespace
@@ -284,37 +393,84 @@ extern "C" int conv_kxk_fwd_tc(const void* x, const void* wk, void* out,
                                const void* residual, int res_dt, int relu,
                                const int* geo, int in_dt, int out_dt,
                                void* stream) {
-  const Geo g{geo[0], geo[1], geo[2],  geo[3],  geo[4],
-              geo[5], geo[6], geo[7],  geo[8],  geo[9],
-              geo[10], geo[11], geo[12], geo[13], geo[14]};
-  const long long m = static_cast<long long>(g.n) * g.oh * g.ow;
-  const long long pixels = static_cast<long long>(g.n) * g.h * g.w;
-  const long long blocks =
-      (m + kBM - 1) / kBM * (g.o > 0 ? g.o / 64 : 0);
+  const Geo g = to_geo(geo);
   const bool bad =
       in_dt != igemm::BF16 ||
       (out_dt != igemm::BF16 && out_dt != igemm::F32) ||
       (residual != nullptr && res_dt != igemm::BF16 &&
        res_dt != igemm::F32) ||
-      g.n < 0 || g.h <= 0 || g.w <= 0 || g.c <= 0 || g.o <= 0 ||
-      g.c % 64 != 0 || g.o % 64 != 0 || g.kh <= 0 || g.kw <= 0 ||
-      g.oh < 0 || g.ow < 0 || g.sh <= 0 || g.sw <= 0 || g.dh <= 0 ||
-      g.dw <= 0 || m > (1 << 30) || pixels > (1 << 30) ||
-      g.ph < -kReach || g.ph > kReach || g.pw < -kReach || g.pw > kReach ||
-      static_cast<long long>(g.oh) * g.sh > kReach ||
-      static_cast<long long>(g.ow) * g.sw > kReach ||
-      static_cast<long long>(g.kh) * g.dh > kReach ||
-      static_cast<long long>(g.kw) * g.dw > kReach ||
-      static_cast<long long>(g.kh) * g.kw * g.c > (1 << 30) ||
-      blocks > 0x7fffffffLL ||
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wk) |
-        reinterpret_cast<uintptr_t>(out)) % 16) != 0;
+      refuses(g) || misaligned(x, wk, out);
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  const long long m = static_cast<long long>(g.n) * g.oh * g.ow;
   if (m == 0) return 0;
   const igemm::Epilogue ep{scale, bias, residual, out, res_dt, out_dt, relu,
                            g.o};
+  return launch_any<false>(x, wk, ep, g, static_cast<int>(m), PhaseOut{},
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The input gradient of a conv without a fold, by phases: g [N, OH, OW, O]
+// (bf16), dx [N, H, W, C] (bf16 or float32), dx_geo the conv's 15 ints (n,
+// h, w, c, o, kh, kw, oh, ow, sh, sw, ph0, pw0, dh, dw), plan n_phases
+// rows of 17 ints (a, b, then the phase conv's Geo), wk every phase's taps
+// [T_h, T_w, O, C] one after the other in the plan's order. Launches one
+// conv_kxk_fwd_tc_kernel<BN, true> a phase, in order, on `stream`;
+// allocates nothing and does not synchronize. Returns the first
+// cudaError_t (0 on success).
+// Refuses (cudaErrorInvalidValue), and computes nothing for, what
+// conv_kxk_fwd_tc refuses at the conv's or at a phase's geometry, a stride
+// or kernel extent past 2^12 a dimension (kh*sh, kw*sw), and a plan that
+// is not every phase with taps and positions, in order (a, b), each at the
+// geometry that phase_axis derives; the phases without taps are left to
+// the caller (dx zero-filled there).
+extern "C" int conv_kxk_dx_phase_tc(const void* g, const void* wk, void* dx,
+                                    const int* plan, int n_phases,
+                                    const int* dx_geo, int in_dt, int out_dt,
+                                    void* stream) {
+  const Geo d = to_geo(dx_geo);
+  // the conv's geometry as the forward kernel sees a stride-1 dx: g as x
+  const Geo as_dx{d.n, d.oh, d.ow, d.o, d.c, d.kh, d.kw, d.h, d.w, 1, 1,
+                  0, 0, d.dh, d.dw};
+  bool bad = in_dt != igemm::BF16 ||
+             (out_dt != igemm::BF16 && out_dt != igemm::F32) ||
+             refuses(as_dx) || d.sh <= 0 || d.sw <= 0 || d.ph < -kReach ||
+             d.ph > kReach || d.pw < -kReach || d.pw > kReach ||
+             static_cast<long long>(d.kh) * d.sh > 4096 ||
+             static_cast<long long>(d.kw) * d.sw > 4096 ||
+             misaligned(g, wk, dx);
+  // the plan against the phases the conv has, in order: the k-th phase
+  // with taps and positions is the plan's k-th row, and there are no more
+  int k = 0;
+  for (int a = 0; !bad && a < d.sh; ++a) {
+    const PhaseAxis ah = phase_axis(a, d.kh, d.sh, d.ph, d.dh);
+    const int rows = (d.h - a + d.sh - 1) / d.sh;
+    for (int b = 0; !bad && b < d.sw; ++b) {
+      const PhaseAxis aw = phase_axis(b, d.kw, d.sw, d.pw, d.dw);
+      const int cols = (d.w - b + d.sw - 1) / d.sw;
+      if (ah.taps == 0 || aw.taps == 0 || rows <= 0 || cols <= 0 ||
+          d.n == 0)
+        continue;
+      const int want[17] = {a,       b,       d.n,    d.oh,   d.ow,   d.o,
+                            d.c,     ah.taps, aw.taps, rows,  cols,   1,
+                            1,       ah.pad,  aw.pad, ah.dil, aw.dil};
+      bad = k >= n_phases;
+      for (int v = 0; !bad && v < 17; ++v) bad = plan[17 * k + v] != want[v];
+      bad = bad || refuses(to_geo(plan + 17 * k + 2));
+      ++k;
+    }
+  }
+  if (bad || k != n_phases) return static_cast<int>(cudaErrorInvalidValue);
+  const igemm::Epilogue ep{nullptr, nullptr, nullptr, dx, 0, out_dt, 0, d.c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = static_cast<int>(m);
-  if (g.o % 128 == 0) return launch<128>(x, wk, ep, g, M, s);
-  return launch<64>(x, wk, ep, g, M, s);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wk);
+  for (int p = 0; p < n_phases; ++p) {
+    const int* row = plan + 17 * p;
+    const Geo pg = to_geo(row + 2);
+    const PhaseOut po{d.h, d.w, row[0], row[1], d.sh, d.sw};
+    const int err = launch_any<true>(g, w, ep, pg, pg.n * pg.oh * pg.ow, po,
+                                     s);
+    if (err != 0) return err;
+    w += static_cast<size_t>(pg.kh) * pg.kw * pg.c * pg.o;
+  }
+  return 0;
 }

@@ -35,15 +35,19 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
   ``conv_kxk_dw`` of ``csrc/conv_kxk.cu`` (float32 FMAs) for the rest.
   Neither gives way to the other: ``convkxk_dw_launch`` launches the one
   it is named, or raises.
-- The input gradient has two kernels, chosen by the pure rule
-  ``dx_route``: a dx that folds nothing is the stride-1 forward conv of g
-  with the taps flipped and C and O swapped (``dx_geometry``), g first
-  dilated by the conv's stride as the reference dilates it
-  (``dilate_cotangent``), so for bf16 with C and O multiples of 64 at a
-  16-byte aligned g it runs on the tensor-core forward
-  ``csrc/conv_kxk_fwd_tc.cu``, at stride 1 and 2 alike; the rest (a fold,
-  float32) runs ``conv_kxk_dx`` of ``csrc/conv_kxk.cu`` (float32 FMAs).
-  ``convkxk_dx_launch`` launches the one it is named, or raises.
+- The input gradient has three routes, chosen by the pure rule
+  ``dx_route``. A dx that folds nothing, for bf16 with C and O multiples
+  of 64 at a 16-byte aligned g, runs on the tensor-core forward
+  ``csrc/conv_kxk_fwd_tc.cu``: at stride 1 (``"tc"``) as the forward conv
+  of g with the taps flipped and C and O swapped (``dx_geometry``); at a
+  larger stride (``"tc_phase"``) as one such conv a phase of dx
+  (``dx_phases``: dx's rows ``a + sh*i`` and columns ``b + sw*j`` from
+  the taps that reach them), each writing its rows and columns of dx
+  straight from its epilogue, with no zero between g's rows read. The
+  rest (a fold, float32) runs ``conv_kxk_dx`` of ``csrc/conv_kxk.cu``
+  (float32 FMAs). ``convkxk_dx_launch`` launches the one it is named, or
+  raises; its ``"tc"`` at a stride above 1 first dilates g by the stride
+  as the reference does (``dilate_cotangent``), which no rule picks.
 
 The plain versions are the same functions in PyTorch: a float32
 ``F.conv2d`` (and its gradients through autograd) on the padded input, the
@@ -58,6 +62,9 @@ autograd is the plain version they are tested against.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -253,21 +260,22 @@ def _fold_checks(g, mask, scale, dev, o):
 
 
 def dx_route(dtype, c, o, aligned, stride, folded):
-    """The input-gradient kernel a CUDA call takes, by a fixed rule:
-    ``"tc"`` (``csrc/conv_kxk_fwd_tc.cu``, wgmma, at ``dx_geometry`` over
-    ``dilate_cotangent``'s g) for a dx that folds nothing (``folded``: a
-    relu mask or a scale is given) with bfloat16 g and w (``dtype``:
-    theirs, None when they differ or when dx is to be neither float32 nor
-    bfloat16), C and O multiples of 64 and g at a 16-byte aligned base
-    (``aligned``), at any ``stride``; the forward conv the dx becomes has
-    O input and C output channels, so the rule is ``tiles.tc_fits(dtype,
-    o, c, aligned)``. ``"simt"`` (``conv_kxk_dx`` of ``csrc/conv_kxk.cu``)
+    """The input-gradient kernel a CUDA call takes, by a fixed rule. For
+    a dx that folds nothing (``folded``: a relu mask or a scale is given)
+    with bfloat16 g and w (``dtype``: theirs, None when they differ or when
+    dx is to be neither float32 nor bfloat16), C and O multiples of 64 and
+    g at a 16-byte aligned base (``aligned``), the tensor-core forward
+    (``csrc/conv_kxk_fwd_tc.cu``, wgmma): ``"tc"`` at ``stride`` (1, 1),
+    one conv at ``dx_geometry``; ``"tc_phase"`` at any larger stride, one
+    conv a phase of ``dx_phases``. The forward conv a dx becomes has O
+    input and C output channels, so the rule is ``tiles.tc_fits(dtype, o,
+    c, aligned)``. ``"simt"`` (``conv_kxk_dx`` of ``csrc/conv_kxk.cu``)
     for everything else: a fold, which the forward kernel does not apply
     to its input; float32, whose 1e-4 backward gate no tensor-core input
     type meets; and other channel counts."""
-    if folded:
+    if folded or not tiles.tc_fits(dtype, o, c, aligned):
         return "simt"
-    return "tc" if tiles.tc_fits(dtype, o, c, aligned) else "simt"
+    return "tc" if tuple(stride) == (1, 1) else "tc_phase"
 
 
 def dilate_cotangent(g, stride):
@@ -303,6 +311,89 @@ def dx_geometry(x_shape, w_shape, stride, padding, dilation):
             1, (kh - 1) * dh - ph0, (kw - 1) * dw - pw0, dh, dw)
 
 
+class DxPhase(NamedTuple):
+    """One phase of a dx (``dx_phases``): dx's rows ``a + sh * i`` and
+    columns ``b + sw * j``, the taps of the conv's kernel whose products
+    reach them (``taps_h``, ``taps_w``, each from the largest down: the
+    order of the phase conv's taps) and the Geo (15 ints, as
+    ``geometry``) of the stride-1 forward conv of g that computes them."""
+    a: int
+    b: int
+    taps_h: Tuple[int, ...]
+    taps_w: Tuple[int, ...]
+    geo: Tuple[int, ...]
+
+    @property
+    def runs(self):
+        """Whether the phase launches a kernel: it has taps, and dx has
+        positions in it."""
+        n, _, _, _, _, kh, kw, oh, ow = self.geo[:9]
+        return n * kh * kw * oh * ow > 0
+
+
+def _phase_axis(a, k, s, p0, d):
+    """One axis of phase ``a`` of a conv of ``k`` taps at stride ``s``,
+    low padding ``p0`` and dilation ``d``: (the taps t whose products reach
+    dx's positions a + s * i, those with (a + p0 - t * d) divisible by s,
+    from the largest down; the phase conv's low padding; its dilation).
+    Tap t reads g at i + (a + p0 - t * d) / s: the offsets rise by
+    d / gcd(s, d) from the largest tap down, the least is the low padding
+    negated."""
+    taps = tuple(t for t in range(k - 1, -1, -1) if (a + p0 - t * d) % s == 0)
+    if not taps:
+        return taps, 0, 1
+    return taps, -((a + p0 - taps[0] * d) // s), d // math.gcd(s, d)
+
+
+def dx_phases(x_shape, w_shape, stride, padding, dilation):
+    """The phases of the dx of a conv (``DxPhase``, one for each (a, b)
+    in [0, sh) x [0, sw), in that order): phase (a, b) is the stride-1
+    forward conv of g [N, OH, OW, O] with its taps ``taps_h`` x
+    ``taps_w`` of the weight, C and O swapped, at the dilation and low
+    padding ``_phase_axis`` gives (a tap past either edge of g reads 0),
+    output [N, ceil((H - a) / sh), ceil((W - b) / sw), C]: dx's rows a +
+    sh * i and columns b + sw * j. Together they cover every position of
+    dx once and every product of the dx once, and skip the products with
+    the zeros the reference puts between g's rows. A phase without taps
+    (3x3 at dilation 2 and stride 2 has such) computes nothing: its
+    positions of dx are 0. At stride (1, 1) the one phase is
+    ``dx_geometry``'s conv. Raises on a stride below 1."""
+    if min(stride) < 1:
+        raise ValueError(f"a dx takes strides of 1 or more, not "
+                         f"{tuple(stride)}")
+    n, h, wd, c, o, kh, kw, oh, ow, sh, sw, ph0, pw0, dh, dw = geometry(
+        x_shape, w_shape, stride, padding, dilation)
+    phases = []
+    for a in range(sh):
+        taps_h, pad_h, dil_h = _phase_axis(a, kh, sh, ph0, dh)
+        for b in range(sw):
+            taps_w, pad_w, dil_w = _phase_axis(b, kw, sw, pw0, dw)
+            phases.append(DxPhase(a, b, taps_h, taps_w, (
+                n, oh, ow, o, c, len(taps_h), len(taps_w), -(-(h - a) // sh),
+                -(-(wd - b) // sw), 1, 1, pad_h, pad_w, dil_h, dil_w)))
+    return tuple(phases)
+
+
+@functools.lru_cache(maxsize=64)
+def _tap_index(taps, device):
+    """(rows, columns): index tensors on ``device`` of the (kh, kw) pairs
+    ``taps``, made once a device and set of taps (a copy from the host to
+    a card waits for the work queued on the card)."""
+    return tuple(torch.tensor([t[i] for t in taps], dtype=torch.long,
+                              device=device) for i in (0, 1))
+
+
+def phase_weights(w, plan):
+    """The weights of ``plan``'s phase convs (``DxPhase``s) from w
+    (OIHW): each phase's taps ``taps_h`` x ``taps_w`` laid out [T_h, T_w,
+    O, C] (the forward kernel's [KH, KW, C, O] for a conv of O input and C
+    output channels), one after the other in one contiguous tensor, as
+    ``conv_kxk_dx_phase_tc`` reads them."""
+    rows, cols = _tap_index(tuple((th, tw) for p in plan for th in p.taps_h
+                                  for tw in p.taps_w), w.device)
+    return w.permute(2, 3, 0, 1)[rows, cols]
+
+
 def _dx_facts(g, mask, scale, w, x_dtype):
     """What ``dx_route`` reads of a call beside its widths and stride:
     (whether a mask or a scale is folded, the dtype of g and w or None
@@ -316,15 +407,17 @@ def _dx_facts(g, mask, scale, w, x_dtype):
 
 def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
                       padding, dilation, facts=None):
-    """Launch the input-gradient kernel of ``route`` (``"tc"`` or
-    ``"simt"``) on the inputs ``convkxk_dx_cuda`` takes; count nothing.
-    Returns dx [N, H, W, C] in ``x_dtype``. Raises on what the kernel does
-    not take and on a launch error: the tensor-core route refuses a fold
-    and operands other than bfloat16 before any launch, at every stride,
-    and its C entry (which then computes nothing) channels that are not
-    multiples of 64 and a misaligned g; it dilates g first
-    (``dilate_cotangent``) where the stride is above 1. ``facts``: this
-    call's ``_dx_facts``, where the caller has them."""
+    """Launch the input-gradient kernel of ``route`` (``"tc"``,
+    ``"tc_phase"`` or ``"simt"``) on the inputs ``convkxk_dx_cuda`` takes;
+    count nothing. Returns dx [N, H, W, C] in ``x_dtype``. Raises on what
+    the kernel does not take and on a launch error: the tensor-core routes
+    refuse a fold and operands other than bfloat16 before any launch, at
+    every stride, and their C entries (which then compute nothing)
+    channels that are not multiples of 64 and a misaligned g. ``"tc"``
+    dilates g first (``dilate_cotangent``) where the stride is above 1;
+    ``"tc_phase"`` runs the phases of ``dx_phases`` that have taps, in one
+    call of its C entry, and zero-fills dx first where a phase has none.
+    ``facts``: this call's ``_dx_facts``, where the caller has them."""
     dev = g.device
     geo = geometry(x_shape, w.shape, stride, padding, dilation)
     n, h, wd, c, o, kh, kw, oh, ow = geo[:9]
@@ -336,25 +429,41 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
     if x_dtype not in DTYPE_CODES:
         raise TypeError(f"x_dtype {x_dtype} is not float32/bfloat16")
     folded, dtype, _ = facts or _dx_facts(g, mask, scale, w, x_dtype)
-    if route == "tc":
+    if route not in ("tc", "tc_phase", "simt"):
+        raise ValueError(f"no input-gradient route {route!r}")
+    if route != "simt":
         if folded:
             raise ValueError("conv_kxk_fwd_tc computes a dx that folds "
                              "nothing, not one with a mask or a scale")
         if dtype != torch.bfloat16:
             raise TypeError(f"conv_kxk_fwd_tc takes bfloat16, not {g.dtype}")
+    zeroed = False
+    if route == "tc":
         geo = dx_geometry(x_shape, w.shape, stride, padding, dilation)
         g = dilate_cotangent(g, stride)
         # [KH, KW, O, C] with the taps flipped: the forward's [KH, KW, C, O]
         # for a conv of O input and C output channels
         wk = w.flip(2, 3).permute(2, 3, 0, 1).contiguous()
-    elif route == "simt":
-        wk = w.permute(2, 3, 0, 1).contiguous()      # [KH, KW, O, C]
+    elif route == "tc_phase":
+        phases = dx_phases(x_shape, w.shape, stride, padding, dilation)
+        plan = [p for p in phases if p.runs]
+        wk = phase_weights(w, plan)
+        zeroed = any(p.geo[7] * p.geo[8] and not p.runs for p in phases)
     else:
-        raise ValueError(f"no input-gradient route {route!r}")
-    dx = torch.empty(x_shape, dtype=x_dtype, device=dev)
+        wk = w.permute(2, 3, 0, 1).contiguous()      # [KH, KW, O, C]
+    dx = (torch.zeros if zeroed else torch.empty)(x_shape, dtype=x_dtype,
+                                                  device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if route == "tc":
+        if route == "tc_phase":
+            name = "conv_kxk_dx_phase_tc"
+            err = tiles.fwd_tc_lib().conv_kxk_dx_phase_tc(
+                g.data_ptr(), wk.data_ptr(), dx.data_ptr(),
+                (ctypes.c_int * (17 * len(plan)))(
+                    *(v for p in plan for v in (p.a, p.b, *p.geo))),
+                len(plan), geo_arg(geo), DTYPE_CODES[g.dtype],
+                DTYPE_CODES[x_dtype], stream)
+        elif route == "tc":
             name = "conv_kxk_fwd_tc"
             err = tiles.fwd_tc_lib().conv_kxk_fwd_tc(
                 g.data_ptr(), wk.data_ptr(), dx.data_ptr(), None, None, None,
@@ -376,23 +485,24 @@ def convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dtype, stride, padding,
     """Launch the input-gradient kernel that ``dx_route`` picks: g (and
     the saved output ``mask``) NHWC [N, OH, OW, O] in w's dtype, scale
     float32 [O] or None. Returns dx [N, H, W, C] in ``x_dtype``. Counts
-    the launch in ``convkxk_dx.launches`` and in
-    ``convkxk_dx_cuda.tc_launches`` or ``.simt_launches``. Raises on what
-    the kernel does not take and on a launch error."""
+    the call in ``convkxk_dx.launches`` and in
+    ``convkxk_dx_cuda.<route>_launches`` (``tc_launches``,
+    ``tc_phase_launches`` or ``simt_launches``; one a call, whatever
+    number of phases the phase route runs). Raises on what the kernel does
+    not take and on a launch error."""
     facts = _dx_facts(g, mask, scale, w, x_dtype)
     folded, dtype, aligned = facts
     route = dx_route(dtype, w.shape[1], w.shape[0], aligned, stride, folded)
     dx = convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype,
                            stride, padding, dilation, facts=facts)
     convkxk_dx.launches += 1
-    if route == "tc":
-        convkxk_dx_cuda.tc_launches += 1
-    else:
-        convkxk_dx_cuda.simt_launches += 1
+    setattr(convkxk_dx_cuda, f"{route}_launches",
+            getattr(convkxk_dx_cuda, f"{route}_launches") + 1)
     return dx
 
 
 convkxk_dx_cuda.tc_launches = 0
+convkxk_dx_cuda.tc_phase_launches = 0
 convkxk_dx_cuda.simt_launches = 0
 
 

@@ -120,16 +120,21 @@ FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + \
     [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 DW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the tensor-core forward's second entry, a dx by phases
+DX_PHASE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
-def _load(name, argtypes):
-    """``csrc/<name>.cu``'s library, its entry ``name`` declared."""
+def _load(name, argtypes, **more):
+    """``csrc/<name>.cu``'s library, its entry ``name`` declared (and
+    each entry of ``more``: {entry: argtypes})."""
     from paddle_tpu_torch.core import native_build
     lib = native_build.load(name)
     if not getattr(lib, "_argtypes_set", False):
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, types in ((name, argtypes), *more.items()):
+            fn = getattr(lib, entry)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -141,8 +146,10 @@ def _lib():
 
 
 def fwd_tc_lib():
-    """``csrc/conv_kxk_fwd_tc.cu`` (the tensor-core conv forward)."""
-    return _load("conv_kxk_fwd_tc", FWD_ARGTYPES)
+    """``csrc/conv_kxk_fwd_tc.cu`` (the tensor-core conv forward, and the
+    strided dx by phases on it)."""
+    return _load("conv_kxk_fwd_tc", FWD_ARGTYPES,
+                 conv_kxk_dx_phase_tc=DX_PHASE_ARGTYPES)
 
 
 def dw_tc_lib():

@@ -176,7 +176,7 @@ def test_resnet_step_counts_one_launch_of_each_pool_kernel():
     assert set(chip_smoke.POOL_ROWS) == {
         k for k in chip_smoke.KERNELS if k.startswith("pool")}
     assert set(chip_smoke.POOL_ROWS) <= set(per_step)
-    assert len(chip_smoke.KERNELS) == 21
+    assert len(chip_smoke.KERNELS) == 22
 
 
 def test_kernels_line_has_the_tile_pool_backward_row():
@@ -247,6 +247,7 @@ def test_kernels_line_has_the_tensor_core_forward_row():
     assert {"convkxk", "convkxk_tc"} <= set(chip_smoke.RESNET_KERNELS)
     assert chip_smoke.TC_TWIN == {"convkxk_tc": "convkxk",
                                   "convkxk_dx_tc": "convkxk_dx",
+                                  "convkxk_dx_tc_phase": "convkxk_dx",
                                   "convkxk_dw_tc": "convkxk_dw",
                                   "brgemm_tc_fwd": "brgemm",
                                   "brgemm_tc_dw": "brgemm"}
@@ -261,18 +262,22 @@ def test_profile_symbols_tell_the_forward_routes_apart():
     simt = chip_smoke.R_SYMBOLS["convkxk"]
     assert sym == "conv_kxk_fwd_tc" and kern == sym + "_kernel"
     assert simt == "XRows"
-    fwd_name = ("void (anonymous namespace)::conv_kxk_fwd_tc_kernel<128>("
-                "__nv_bfloat16 const*, __nv_bfloat16 const*)")
+    fwd_name = ("void (anonymous namespace)::conv_kxk_fwd_tc_kernel<128, "
+                "false>(__nv_bfloat16 const*, __nv_bfloat16 const*)")
+    phase_name = fwd_name.replace("false", "true")
     dw_name = ("void (anonymous namespace)::conv_kxk_dw_tc_kernel<128, "
                "false>(__nv_bfloat16 const*)")
     simt_name = ("void igemm::gemm_kernel<128, (anonymous namespace)::XRows"
                  "<__nv_bfloat16>, igemm::DenseB<__nv_bfloat16> >()")
     assert kern in fwd_name and simt not in fwd_name
+    assert kern in phase_name and simt not in phase_name
     assert sym not in dw_name + simt_name
     for other in ("convkxk_dx", "convkxk_dw", "convkxk_dw_tc", "brgemm"):
-        assert chip_smoke.R_SYMBOLS[other] not in fwd_name
+        assert chip_smoke.R_SYMBOLS[other] not in fwd_name + phase_name
     tc_in_step = chip_smoke.TC_IN_STEP
-    assert tc_in_step == {kern: 16 + 16 + 72, simt: 0,
+    # the 3x3 forwards, the stride-1 dx, 4 phases a stride-2 dx, the 1x1
+    # "nn" GEMMs
+    assert tc_in_step == {kern: 16 + 13 + 3 * 4 + 72, simt: 0,
                           chip_smoke.DW_TC_KERNEL: 16 + 36,
                           chip_smoke.R_SYMBOLS["convkxk_dx"]: 0,
                           chip_smoke.R_SYMBOLS["convkxk_dw"]: 0,
@@ -419,7 +424,8 @@ def test_kernels_line_has_the_tensor_core_dx_row():
                    "replaces": "paddle_tpu/kernels/conv_fused.py:425"}
     assert simt["replaces"] == row["replaces"]
     assert "convkxk_dx_tc" in chip_smoke.RESNET_KERNELS
-    assert chip_smoke.tc_rows("convkxk_dx") == ["convkxk_dx_tc"]
+    assert chip_smoke.tc_rows("convkxk_dx") == ["convkxk_dx_tc",
+                                                "convkxk_dx_tc_phase"]
     assert chip_smoke.TC_KERNEL["convkxk_dx_tc"] == chip_smoke.FWD_TC_KERNEL
     assert chip_smoke.R_SYMBOLS["convkxk_dx_tc"] == "conv_kxk_fwd_tc"
     assert hasattr(cf.convkxk_dx_cuda, "tc_launches")
@@ -427,60 +433,126 @@ def test_kernels_line_has_the_tensor_core_dx_row():
                                             "convkxk_dx_simt"}
 
 
-@pytest.mark.parametrize("dtype,base,table,tc,simt", [
-    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 16, 0),
-    (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 16),
-    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 16, 0),
-    (torch.bfloat16, "R_EVAL", "TC_EVAL", 0, 0),
+def test_kernels_line_has_the_tensor_core_dx_phase_row():
+    """The 22nd row: #7's route at a stride above 1, the tensor-core
+    forward's source, named after the counter of the wrapper that picks
+    it; the step's profile counts each call's phases with taps
+    (``TC_RECORDS``: 4 at every stride-2 3x3 of ResNet-50, as R4's
+    ``r4_records`` counts them) under the forward's symbol."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    row = chip_smoke.KERNELS["convkxk_dx_tc_phase"]
+    assert row == chip_smoke.KERNELS["convkxk_dx_tc"]
+    assert chip_smoke.TC_TWIN["convkxk_dx_tc_phase"] == "convkxk_dx"
+    assert chip_smoke.row_route("convkxk_dx_tc_phase") == "tc_phase"
+    assert chip_smoke.TC_KERNEL["convkxk_dx_tc_phase"] == \
+        chip_smoke.FWD_TC_KERNEL
+    assert chip_smoke.R_SYMBOLS["convkxk_dx_tc_phase"] == "conv_kxk_fwd_tc"
+    assert hasattr(cf.convkxk_dx_cuda, "tc_phase_launches")
+    assert "convkxk_dx_tc_phase" in chip_smoke.r_counters()
+    for shape in chip_smoke.resnet50_conv_shapes():
+        h, c, o, k, s = shape
+        if k == 3 and s == 2:
+            assert chip_smoke.r4_records("convkxk_dx", "tc_phase", shape,
+                                         chip_smoke.R3_BATCH, "cpu") == \
+                chip_smoke.TC_RECORDS["convkxk_dx_tc_phase"] == 4
+
+
+def test_r3_sees_every_dilation_of_g():
+    """R3's check that the step dilates no g: ``dilations`` records each
+    ``dilate_cotangent`` call at a stride above 1 (the one a dx that
+    reaches ``convkxk_dx_launch("tc")`` makes), none at (1, 1), and puts
+    the function back."""
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    plain = cf.dilate_cotangent
+    g = torch.randn(1, 3, 3, 2)
+    with chip_smoke.dilations() as seen:
+        cf.dilate_cotangent(g, (1, 1))
+        assert tuple(cf.dilate_cotangent(g, (2, 1)).shape) == (1, 5, 3, 2)
+    assert seen == [(2, 1)]
+    assert cf.dilate_cotangent is plain
+
+
+def test_r4_yardsticks_are_the_phase_rows_alone():
+    """Only the stride-2 dx by phases has parts that are not its own
+    route's: the tensor-core dx over the dilated g and its dilation; every
+    other part times its row's route."""
+    not_own = [p for p in chip_smoke.R4_PARTS
+               if not chip_smoke.part_is_own(p)]
+    assert not_own == ["convkxk_dx_tc_s2", "convkxk_dx_tc_dilate"]
+    for row in chip_smoke.RESNET_KERNELS:
+        assert chip_smoke.row_route(row) == (
+            row[len(chip_smoke.TC_TWIN[row]) + 1:]
+            if row in chip_smoke.TC_TWIN else "simt")
+
+
+@pytest.mark.parametrize("dtype,base,table,tc,phase,simt", [
+    (torch.bfloat16, "R_PER_STEP", "TC_PER_STEP", 13, 3, 0),
+    (torch.float32, "R_PER_STEP", "TC_PER_STEP", 0, 0, 16),
+    (torch.bfloat16, "R_POOL_OFF", "TC_PER_STEP", 13, 3, 0),
+    (torch.bfloat16, "R_EVAL", "TC_EVAL", 0, 0, 0),
 ], ids=["bf16_step", "f32_step", "bf16_pool_off", "eval"])
 def test_dx_routes_split_the_3x3_dx_by_dtype_and_stride(dtype, base, table,
-                                                        tc, simt):
+                                                        tc, phase, simt):
     counts, table = getattr(chip_smoke, base), getattr(chip_smoke, table)
     want = chip_smoke.routes(dtype, counts, ("convkxk_dx",), table)
-    assert (want["convkxk_dx_tc"], want["convkxk_dx_simt"]) == (tc, simt)
-    assert want["convkxk_dx"] == tc + simt
+    assert (want["convkxk_dx_tc"], want["convkxk_dx_tc_phase"],
+            want["convkxk_dx_simt"]) == (tc, phase, simt)
+    assert want["convkxk_dx"] == tc + phase + simt
     assert {k: v for k, v in want.items()
             if not k.startswith("convkxk_dx_")} == counts
 
 
 def test_resnet_3x3_dx_take_the_route_the_script_asserts():
-    """R1, R3 and R4 assert ResNet-50's 16 3x3 dx, the 13 stride-1 and the
-    3 stride-2 ones, on the tensor cores in bf16 and every float32 one and
-    every one that folds on SIMT: the port's rule says so for every 3x3
-    shape of the step; the further R1 cases are bf16 tc calls that cover
-    a dilation, a negative low pad of g with C != O, an M that is no
-    multiple of the 128-row tile and a float32 dx, and at stride 2 a
-    ragged M, an odd H with C != O, a stride of (2, 1) and a float32 dx."""
-    from paddle_tpu_torch.kernels.conv_fused import dx_geometry, dx_route
+    """R1, R3 and R4 assert ResNet-50's 16 3x3 dx on the tensor cores in
+    bf16, the 13 stride-1 ones as one conv and the 3 stride-2 ones by
+    phases, and every float32 one and every one that folds on SIMT: the
+    port's rule says so for every 3x3 shape of the step; the further R1
+    cases take the route each names: as one conv a dilation, a negative
+    low pad of g with C != O, an M that is no multiple of the 128-row tile
+    and a float32 dx; by phases at stride 2 a ragged M, an odd H with C !=
+    O, a stride of (2, 1), a float32 dx, phases no tap reaches and O = C =
+    192, and a stride of 3."""
+    from paddle_tpu_torch.kernels.conv_fused import (dx_geometry, dx_phases,
+                                                     dx_route)
     strides = [s for h, c, o, k, s in chip_smoke.resnet50_conv_shapes()
                if k == 3]
     assert (strides.count(1), strides.count(2)) == (13, 3)
-    assert len(strides) == chip_smoke.TC_PER_STEP["convkxk_dx_tc"] == 16
+    per_step = chip_smoke.TC_PER_STEP
+    assert (per_step["convkxk_dx_tc"], per_step["convkxk_dx_tc_phase"]) == \
+        (strides.count(1), strides.count(2))
     for h, c, o, k, s in chip_smoke.resnet50_conv_shapes():
         if k == 3:
             assert dx_route(torch.bfloat16, c, o, True, (s, s), False) == \
-                "tc"
+                ("tc" if s == 1 else "tc_phase")
             assert dx_route(torch.float32, c, o, True, (s, s), False) == \
                 "simt"
             assert dx_route(torch.bfloat16, c, o, True, (s, s), True) == \
                 "simt"
     cases = {c[0]: c for c in chip_smoke.R1_DX_TC_CASES}
-    geos = {}
-    for name, (h, wd, c), o, batch, pad, dil, _, stride in cases.values():
-        assert dx_route(torch.bfloat16, c, o, True, stride, False) == "tc"
-        geos[name] = dx_geometry((batch, h, wd, c), (o, c, 3, 3), stride,
-                                 pad, (dil, dil))
+    geos, phases = {}, {}
+    for name, (h, wd, c), o, batch, pad, dil, _, stride, route in \
+            cases.values():
+        assert dx_route(torch.bfloat16, c, o, True, stride, False) == route
+        args = ((batch, h, wd, c), (o, c, 3, 3), stride, pad, (dil, dil))
+        geos[name], phases[name] = dx_geometry(*args), dx_phases(*args)
     assert cases["dilated"][5] == 2
     assert geos["uneven_pad"][11] < 0 and cases["uneven_pad"][1][2] != \
         cases["uneven_pad"][2]
-    for name in ("ragged_m", "s2_ragged_m"):
-        n, h, wd = geos[name][0], geos[name][7], geos[name][8]
-        assert n * h * wd % 128 != 0
+    n, h, wd = geos["ragged_m"][0], geos["ragged_m"][7], geos["ragged_m"][8]
+    assert n * h * wd % 128 != 0
+    assert all(p.geo[0] * p.geo[7] * p.geo[8] % 128 != 0
+               for p in phases["s2_ragged_m"])
     assert cases["f32_out"][6] == cases["s2_f32_out"][6] == torch.float32
     assert cases["s2_odd_h"][1][0] % 2 == 1 and cases["s2_odd_h"][1][2] != \
         cases["s2_odd_h"][2]
     assert cases["s21"][7] == (2, 1)
-    assert {c[7] for c in cases.values()} == {(1, 1), (2, 2), (2, 1)}
+    assert [p.runs for p in phases["s2_empty_phase"]] == \
+        [True, False, False, False]
+    assert cases["s2_o192"][1][2] == cases["s2_o192"][2] == 192
+    assert len(phases["s3"]) == 9 and all(p.runs for p in phases["s3"])
+    assert {c[7] for c in cases.values()} == {(1, 1), (2, 2), (2, 1),
+                                              (3, 3)}
+    assert all((c[8] == "tc") == (c[7] == (1, 1)) for c in cases.values())
 
 
 def test_kernels_line_has_the_brgemm_tensor_core_rows():
@@ -549,8 +621,8 @@ def test_conv_calls_take_the_route_the_script_asserts(monkeypatch, dtype):
     """R1's ``want_route`` is what the port's wrappers pick (their rules
     and counters, the launches faked) for every call ``conv_calls`` makes
     at every distinct ResNet-50 shape, with and without the epilogue and
-    the fold: in bf16 a dx that folds stays on SIMT, every other call (the
-    3x3 dx at stride 2 too) takes the tensor cores."""
+    the fold: in bf16 a dx that folds stays on SIMT, every other call takes
+    the tensor cores (the 3x3 dx at stride 2 by phases)."""
     fake = _FakeLaunches(monkeypatch)
     for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
         x, w, g = chip_smoke.r_inputs(shape, 1, dtype, "cpu", 0)
@@ -569,8 +641,8 @@ def test_conv_calls_take_the_route_the_script_asserts(monkeypatch, dtype):
                 assert chip_smoke.route_taken(before, kernel) == want, \
                     (name, shape)
                 assert fake.routes[-1] == want
-    assert {"tc_fwd", "tc_dw", "tc", "simt"} == set(fake.routes) or \
-        dtype == torch.float32
+    assert {"tc_fwd", "tc_dw", "tc", "tc_phase", "simt"} == \
+        set(fake.routes) or dtype == torch.float32
 
 
 @pytest.mark.parametrize("lowp", ["grad+out+blk+stem+bnres", ""],
@@ -580,8 +652,9 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
     through the wrappers (launches faked) counts ``routes(bf16)``, every
     1x1 forward and dx on the tensor-core forward (no conv of the step
     folds: BatchNorm runs apart in training) and every 1x1 weight
-    gradient on the tensor-core weight gradient, the 16 3x3 dx (13 at
-    stride 1, 3 at stride 2) on the tensor-core forward; the pure bf16
+    gradient on the tensor-core weight gradient, the 16 3x3 dx on the
+    tensor-core forward (13 at stride 1 as one conv, 3 at stride 2 by
+    phases); the pure bf16
     model's eval forward counts ``routes(EVAL_DTYPE, R_EVAL)``, all on
     SIMT."""
     from paddle_tpu_torch import bench
@@ -610,7 +683,8 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
     bench.train_step(model, params, opt, state, x, labels)
     counts = chip_smoke.r_counts()
     assert routed(counts) == routed(chip_smoke.routes(torch.bfloat16))
-    assert (counts["convkxk_dx_tc"], counts["convkxk_dx_simt"]) == (16, 0)
+    assert (counts["convkxk_dx_tc"], counts["convkxk_dx_tc_phase"],
+            counts["convkxk_dx_simt"]) == (13, 3, 0)
     if not lowp:
         model.eval()
         chip_smoke.zero_r_counts()
@@ -623,14 +697,16 @@ def test_bench_step_counts_the_routes_r3_expects(monkeypatch, lowp):
 def test_r4_parts_time_every_routed_row_apart():
     """At every ResNet-50 shape, each call of ``conv_calls`` is launched in
     exactly one SIMT part and, where the bf16 step takes the tensor cores,
-    in exactly one kernel part of that route: the dx at stride 1 and at
-    stride 2 apart on either route, in different sessions; the stride-2
-    tensor-core dx's dilation of g in a part of its own. No kernel symbol
-    repeats within a session; every tensor-core part has a SIMT part over
-    the same calls; every ResNet kernel row has a part."""
+    in exactly one kernel part of that route, its row's own: the dx at
+    stride 1 and at stride 2 apart on every route, in different sessions;
+    beside the stride-2 dx by phases its yardsticks on the same calls, the
+    tensor-core dx over the dilated g and that dilation in a part of its
+    own. No kernel symbol repeats within a session; every tensor-core part
+    has a SIMT part over the same calls; every ResNet kernel row has a
+    part."""
     parts, sessions = chip_smoke.R4_PARTS, chip_smoke.R4_SESSIONS
     assert sorted(p for s in sessions for p in s) == sorted(parts)
-    assert len(sessions) == 4
+    assert len(sessions) == 5
     for session in sessions:
         syms = [sym for p in session for sym in chip_smoke.part_symbols(p)]
         assert all(a not in b for a in syms for b in syms if a is not b)
@@ -643,7 +719,8 @@ def test_r4_parts_time_every_routed_row_apart():
                       if chip_smoke.part_takes(p, call, shape[4])]
             simt = [p for p in takers if parts[p][1] == "simt"]
             assert len(simt) == 1 and parts[simt[0]][0] == kernel
-            tc = [p for p in takers if parts[p][1] not in ("simt", "dilate")]
+            own = [p for p in takers if chip_smoke.part_is_own(p)]
+            tc = [p for p in own if parts[p][1] != "simt"]
             want = chip_smoke.want_route(call, torch.bfloat16, False,
                                          shape[4])
             assert [parts[p][1] for p in tc] == \
@@ -653,10 +730,13 @@ def test_r4_parts_time_every_routed_row_apart():
                 assert parts[p][2] == parts[simt[0]][2]
                 assert chip_smoke.R4_STRIDES.get(p) == \
                     chip_smoke.R4_STRIDES.get(simt[0])
-            dilate = [p for p in takers if parts[p][1] == "dilate"]
-            assert len(dilate) == (call == "convkxk_dx" and shape[4] == 2)
-            for p in dilate:
-                assert parts[p][0] == parts[tc[0]][0] == "convkxk_dx_tc"
+            yardsticks = [p for p in takers if p not in own]
+            assert [parts[p][1] for p in yardsticks] == (
+                ["tc", "dilate"] if call == "convkxk_dx" and shape[4] == 2
+                else [])
+            for p in yardsticks:
+                assert parts[p][0] == parts[tc[0]][0] == \
+                    "convkxk_dx_tc_phase"
     for route in ("simt", "tc"):
         dx_s1, dx_s2 = (next(p for p in parts
                              if parts[p][1] == route
@@ -688,9 +768,10 @@ def test_r4_rows_are_means_over_the_calls_the_step_launches_on_them(key):
     """R4's numbers of a row are means over the calls of its parts
     (``r4_row_parts``, all of the row's) at every ResNet-50 conv: the
     calls a bf16 step launches on the row's route, as many as its
-    launches there (for the tensor-core dx the 13 stride-1 and the 3
-    stride-2 calls), or, for a SIMT twin the step launches nowhere (the
-    SIMT dx too), all the step's calls of its kernel."""
+    launches there (for the tensor-core dx the 13 stride-1 calls, for the
+    dx by phases the 3 stride-2 calls, its yardsticks' too), or, for a
+    SIMT twin the step launches nowhere (the SIMT dx too), all the step's
+    calls of its kernel."""
     step = chip_smoke.routes(torch.bfloat16)
     launches = step[key] if key in chip_smoke.TC_TWIN else \
         step[f"{key}_simt"]
@@ -706,9 +787,11 @@ def test_r4_rows_are_means_over_the_calls_the_step_launches_on_them(key):
             if row == key]
     assert parts == mine
     if key.startswith("convkxk_dx"):
-        assert launches == (16 if key == "convkxk_dx_tc" else 0)
-        assert {(shape[3], shape[4]) for shape, call in taken} == \
-            {(3, 1), (3, 2)}
+        want = {"convkxk_dx": (0, {(3, 1), (3, 2)}),
+                "convkxk_dx_tc": (13, {(3, 1)}),
+                "convkxk_dx_tc_phase": (3, {(3, 2)})}[key]
+        assert (launches, {(shape[3], shape[4]) for shape, call in taken}) \
+            == want
 
 
 @pytest.mark.parametrize("geo,esize,nbytes,ops", [
@@ -924,7 +1007,7 @@ def test_kernels_line_has_the_tensor_core_dq_row():
                    "source": "paddle_tpu_torch/csrc/flash_bwd_dq_tc.cu",
                    "replaces": "paddle_tpu/kernels/attention.py:345"}
     assert simt["replaces"] == row["replaces"]
-    assert len(chip_smoke.KERNELS) == 21
+    assert len(chip_smoke.KERNELS) == 22
     assert "flash_bwd_dq_tc" in chip_smoke.SOURCES
     assert chip_smoke.FLASH_TC_TWIN == {"flash_fwd_tc": "flash_fwd",
                                         "flash_bwd_dq_tc": "flash_bwd_dq",

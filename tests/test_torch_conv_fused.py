@@ -9,12 +9,16 @@ kernels (interpret mode), on the CPU.
   and weight gradient, and a bf16 1x1 GEMM, to the tensor-core kernels;
   ``tiles.gemm_geometry``: at its 1x1 geometry the 3x3 kernels' plain
   versions compute the JAX ``brgemm``.
-- ``conv_fused.dx_route``, ``dilate_cotangent`` and ``dx_geometry`` (#7):
-  the rule that sends a bf16 dx that folds nothing to the tensor-core
-  forward, at stride 1 and 2, and the geometry it runs there: the forward
-  conv of g (dilated by the stride as the reference dilates it) with the
-  taps flipped and C and O swapped, whose plain version computes the JAX
-  ``_convkxk_dx``.
+- ``conv_fused.dx_route``, ``dilate_cotangent``, ``dx_geometry`` and
+  ``dx_phases`` (#7): the rule that sends a bf16 dx that folds nothing to
+  the tensor-core forward, at stride 1 as one conv (``"tc"``) and at a
+  larger stride as one conv a phase of dx (``"tc_phase"``), and the
+  geometries they run there: the forward conv of g with the taps flipped
+  and C and O swapped (over g dilated by the stride as the reference
+  dilates it, for ``"tc"`` launched at a stride above 1), and each
+  phase's conv of g itself with the taps that reach the phase, which a
+  brute force over the conv's products holds; the plain versions of both
+  compute the JAX ``_convkxk_dx``.
 - ``conv_fused.conv2d_bn_act`` (#4 for 1x1, #6-#8 for KxK): the output and
   the gradients of x, w, scale, bias and residual over the grid of
   ``tests/test_conv_fused.py`` (ks 1/3, stride 1/2, residual, act), odd
@@ -29,6 +33,9 @@ those of ``tests/test_conv_fused.py``: float32 forward 1e-5, backward
 2e-2 (one bf16 rounding of two float32 sums that differ by ~1e-7 can
 part by an ulp, 2^-7 relative at most), a bfloat16 conv 0.1 as there.
 """
+
+import itertools
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -419,8 +426,9 @@ DX_ROUTE_CASES = [
     ("bf16_512", torch.bfloat16, 512, 512, True, (1, 1), False, "tc"),
     ("bf16_c64_o192", torch.bfloat16, 64, 192, True, (1, 1), False, "tc"),
     ("bf16_c192_o64", torch.bfloat16, 192, 64, True, (1, 1), False, "tc"),
-    ("stride2", torch.bfloat16, 64, 64, True, (2, 2), False, "tc"),
-    ("stride_1x2", torch.bfloat16, 64, 64, True, (1, 2), False, "tc"),
+    ("stride2", torch.bfloat16, 64, 64, True, (2, 2), False, "tc_phase"),
+    ("stride_1x2", torch.bfloat16, 64, 64, True, (1, 2), False,
+     "tc_phase"),
     ("folded", torch.bfloat16, 64, 64, True, (1, 1), True, "simt"),
     ("stride2_folded", torch.bfloat16, 64, 64, True, (2, 2), True, "simt"),
     ("f32", torch.float32, 64, 64, True, (1, 1), False, "simt"),
@@ -434,10 +442,13 @@ DX_ROUTE_CASES = [
 @pytest.mark.parametrize("case", DX_ROUTE_CASES,
                          ids=[c[0] for c in DX_ROUTE_CASES])
 def test_dx_route_takes_the_tensor_cores_only_where_they_fit(case):
+    """A dx that folds nothing where ``tc_fits`` takes (O, C) runs on the
+    tensor cores: as one conv at stride (1, 1), by phases at any larger
+    stride; the rest on SIMT."""
     _, dtype, c, o, aligned, stride, folded, route = case
     assert pcf.dx_route(dtype, c, o, aligned, stride, folded) == route
-    want = "tc" if ptiles.tc_fits(dtype, o, c, aligned) and not folded \
-        else "simt"
+    tc = ptiles.tc_fits(dtype, o, c, aligned) and not folded
+    want = ("tc" if stride == (1, 1) else "tc_phase") if tc else "simt"
     assert route == want
 
 
@@ -449,7 +460,7 @@ DX_CALL_CASES = [
     ("bf16_f32_dx", torch.bfloat16, torch.bfloat16, torch.float32, 1, None,
      False, "tc"),
     ("stride2", torch.bfloat16, torch.bfloat16, torch.bfloat16, 2, None,
-     False, "tc"),
+     False, "tc_phase"),
     ("mask", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, "mask",
      False, "simt"),
     ("scale", torch.bfloat16, torch.bfloat16, torch.bfloat16, 1, "scale",
@@ -470,7 +481,8 @@ DX_CALL_CASES = [
 def test_dx_cuda_reads_the_rules_facts_of_each_call(case, monkeypatch):
     """``convkxk_dx_cuda``'s route (its launch faked by the plain version,
     so its rule and counters run on CPU tensors): the dtypes of g, w and
-    dx, the stride, a mask or a scale, and g's base."""
+    dx, the stride, a mask or a scale, and g's base; one count a call in
+    the route's counter and in ``convkxk_dx.launches``."""
     _, g_dt, w_dt, x_dt, s, fold, off, route = case
     taken = []
 
@@ -479,10 +491,10 @@ def test_dx_cuda_reads_the_rules_facts_of_each_call(case, monkeypatch):
         return pcf.convkxk_dx_reference(*args)
 
     monkeypatch.setattr(pcf, "convkxk_dx_launch", launch)
-    for f, a in ((pcf.convkxk_dx, "launches"),
-                 (pcf.convkxk_dx_cuda, "tc_launches"),
-                 (pcf.convkxk_dx_cuda, "simt_launches")):
-        monkeypatch.setattr(f, a, 0)
+    routes = ("tc", "tc_phase", "simt")
+    monkeypatch.setattr(pcf.convkxk_dx, "launches", 0)
+    for r in routes:
+        monkeypatch.setattr(pcf.convkxk_dx_cuda, f"{r}_launches", 0)
     x_shape = (1, 5, 5, 64)
     oh = (5 - 1) // s + 1
     g = torch.randn(1, oh, oh, 64).to(g_dt)
@@ -495,9 +507,9 @@ def test_dx_cuda_reads_the_rules_facts_of_each_call(case, monkeypatch):
     pcf.convkxk_dx_cuda(g, mask, scale, w, x_shape, x_dt, (s, s),
                         ((1, 1), (1, 1)), (1, 1))
     assert taken == [route]
-    assert (pcf.convkxk_dx.launches, pcf.convkxk_dx_cuda.tc_launches,
-            pcf.convkxk_dx_cuda.simt_launches) == \
-        (1, int(route == "tc"), int(route == "simt"))
+    assert pcf.convkxk_dx.launches == 1
+    assert {r: getattr(pcf.convkxk_dx_cuda, f"{r}_launches")
+            for r in routes} == {r: int(r == route) for r in routes}
 
 
 # (x_shape, w_shape, padding, dilation, stride): ResNet-50's four stride-1
@@ -658,11 +670,177 @@ def test_dx_as_a_flipped_forward_conv_matches_the_jax_kernel(case, dt, x_dt):
         assert np.abs(_np(mine) - _np(ref)).max() <= tol * scale
 
 
+def _products(x_shape, w_shape, stride, padding, dilation):
+    """{dx position (ih, iw): {(kh, kw, oh, ow)}}: the products of the
+    forward conv that reach each position of x, from the conv's
+    definition."""
+    _, h, wd, _, _, kh, kw, oh, ow, sh, sw, ph0, pw0, dh, dw = \
+        pcf.geometry(x_shape, w_shape, stride, padding, dilation)
+    reach = {}
+    for r, q, t, u in itertools.product(range(oh), range(ow), range(kh),
+                                        range(kw)):
+        ih, iw = r * sh - ph0 + t * dh, q * sw - pw0 + u * dw
+        if 0 <= ih < h and 0 <= iw < wd:
+            reach.setdefault((ih, iw), set()).add((t, u, r, q))
+    return reach
+
+
+# one axis of a phase-plan case: (size, taps, dilation, padding)
+PHASE_AXES = [(7, 3, 1, (1, 1)), (8, 3, 2, (2, 2)), (9, 1, 1, (0, 0)),
+              (6, 5, 1, (0, 3)), (10, 4, 3, (4, 1)), (5, 2, 2, (3, 0)),
+              (9, 5, 2, (1, 2))]
+
+
+@pytest.mark.parametrize("stride", [(1, 1), (2, 2), (3, 3), (2, 1), (1, 3),
+                                    (3, 2)], ids=str)
+def test_dx_phases_cover_every_position_and_product_once(stride):
+    """Brute force over the conv's products, for every pair of
+    ``PHASE_AXES`` (kernels 1-5, dilations 1-3, uneven paddings, odd and
+    even sizes) at ``stride``: the phases come in the order (a, b); each
+    covers dx's rows a + sh * i and columns b + sw * j, every position of
+    dx in exactly one phase; its conv of g (taps ``taps_h`` x ``taps_w``
+    of the weight, from the largest down, at its Geo's padding and
+    dilation, a tap past either edge of g reading 0) makes exactly the
+    products that reach each of its positions, so a phase without taps is
+    one no product reaches; its taps are exactly those whose products
+    reach its rows and columns at some output position."""
+    sh, sw = stride
+    seen_empty = False
+    for (h, kh, dh, ph), (wd, kw, dw, pw) in itertools.product(PHASE_AXES,
+                                                               repeat=2):
+        x_shape, w_shape = (2, h, wd, 16), (32, 16, kh, kw)
+        args = (x_shape, w_shape, stride, (ph, pw), (dh, dw))
+        geo = pcf.geometry(*args)
+        oh, ow = geo[7], geo[8]
+        if oh <= 0 or ow <= 0:
+            continue
+        reach = _products(*args)
+        phases = pcf.dx_phases(*args)
+        assert [(p.a, p.b) for p in phases] == list(itertools.product(
+            range(sh), range(sw)))
+        covered = Counter()
+        for p in phases:
+            (n, gh, gw, o, c, th, tw, rows, cols, s1, s2, lo_h, lo_w, dil_h,
+             dil_w) = p.geo
+            assert (n, gh, gw, o, c, s1, s2) == (2, oh, ow, 32, 16, 1, 1)
+            assert (th, tw) == (len(p.taps_h), len(p.taps_w))
+            for taps, a, k, s, p0, d in ((p.taps_h, p.a, kh, sh, ph[0], dh),
+                                         (p.taps_w, p.b, kw, sw, pw[0], dw)):
+                # output row r's tap t lands on r * s - p0 + t * d: a row
+                # of the phase for some r when the rest is a multiple of s
+                assert list(taps) == sorted(taps, reverse=True)
+                assert set(taps) == {t for t in range(k)
+                                     if (t * d - p0 - a) % s == 0}
+            assert p.runs == (th * tw * rows * cols > 0)
+            seen_empty |= rows * cols > 0 and not p.runs
+            for i, j in itertools.product(range(rows), range(cols)):
+                pos = (p.a + sh * i, p.b + sw * j)
+                covered[pos] += 1
+                made = {(p.taps_h[t], p.taps_w[u], i - lo_h + t * dil_h,
+                         j - lo_w + u * dil_w)
+                        for t, u in itertools.product(range(th), range(tw))}
+                made = {m for m in made if 0 <= m[2] < oh and 0 <= m[3] < ow}
+                assert made == reach.get(pos, set()), (args, p, pos)
+        assert covered == Counter(itertools.product(range(h), range(wd)))
+    assert seen_empty == (stride != (1, 1))
+
+
+def test_dx_phases_at_stride_1_is_the_flipped_forward_conv():
+    """At stride (1, 1) a dx has one phase, every tap flipped: the
+    conv ``dx_geometry`` gives, the weight ``"tc"`` flips."""
+    w = torch.randn(32, 16, 3, 2)
+    for pad, dil in ((((1, 1), (0, 1)), (1, 1)), (((3, 0), (2, 2)), (2, 1))):
+        args = ((2, 7, 6, 16), w.shape, (1, 1), pad, dil)
+        (p,) = pcf.dx_phases(*args)
+        assert (p.a, p.b, p.taps_h, p.taps_w) == (0, 0, (2, 1, 0), (1, 0))
+        assert p.geo == pcf.dx_geometry(*args)
+        assert torch.equal(pcf.phase_weights(w, [p]),
+                           w.flip(2, 3).permute(2, 3, 0, 1).reshape(6, 32,
+                                                                    16))
+    with pytest.raises(ValueError, match="stride"):
+        pcf.dx_phases((2, 7, 6, 16), w.shape, (0, 1), ((1, 1), (1, 1)),
+                      (1, 1))
+
+
+def _phased_plain(g, w, x_shape, x_dtype, stride, padding, dilation):
+    """What the ``tc_phase`` route runs on the card, in its plain
+    version: each phase that runs (``dx_phases``) through the plain forward
+    (``convkxk_reference``) at its Geo, its weight read from
+    ``phase_weights``' one tensor as the C entry reads it, written into
+    dx's rows a::sh and columns b::sw; dx 0 where no phase runs."""
+    sh, sw = stride
+    phases = pcf.dx_phases(x_shape, w.shape, stride, padding, dilation)
+    plan = [p for p in phases if p.runs]
+    wk = pcf.phase_weights(w, plan)
+    dx = torch.zeros(x_shape, dtype=x_dtype)
+    at = 0
+    for p in plan:
+        _, gh, gw, o, c, th, tw, rows, cols, _, _, lo_h, lo_w, dil_h, dil_w = \
+            p.geo
+        # [T_h, T_w, O, C] -> the phase conv's OIHW [C, O, T_h, T_w]
+        wp = wk[at:at + th * tw].reshape(th, tw, o, c).permute(3, 2, 0, 1)
+        at += th * tw
+        # the high pads the phase's output size implies
+        pads = ((lo_h, rows + (th - 1) * dil_h - gh - lo_h),
+                (lo_w, cols + (tw - 1) * dil_w - gw - lo_w))
+        out = pcf.convkxk_reference(g, wp, padding=pads,
+                                    dilation=(dil_h, dil_w),
+                                    out_dtype=x_dtype)
+        assert tuple(out.shape) == (g.shape[0], rows, cols, c)
+        dx[:, p.a::sh, p.b::sw] = out
+    assert at == wk.shape[0]
+    return dx
+
+
+# DX_TC_CASES and a stride of 3 with C != O and an uneven padding, and a
+# stride of (2, 1) whose odd rows no tap reaches (dilation 2, padding 2)
+DX_PHASE_CASES = DX_TC_CASES + [
+    ("s3_uneven", (2, 10, 11, 16), 32, ((2, 0), (1, 1)), (1, 1), (3, 3)),
+    ("s21_empty_rows", (2, 9, 8, 16), 16, ((2, 2), (1, 1)), (2, 1),
+     (2, 2)),
+]
+
+
+@pytest.mark.parametrize("dt,x_dt", [("f32", "f32"), ("bf16", "bf16"),
+                                     ("bf16", "f32")],
+                         ids=["f32", "bf16", "bf16_f32_dx"])
+@pytest.mark.parametrize("case", DX_PHASE_CASES,
+                         ids=[c[0] for c in DX_PHASE_CASES])
+def test_dx_by_phases_matches_the_jax_kernel(case, dt, x_dt):
+    """The phase route's plain version (``_phased_plain``) against the
+    JAX ``_convkxk_dx`` in interpret mode (run eagerly) over the dilated
+    g: float32 within 1e-5, a bf16 operand within 2e-2, of max|plain|
+    (the tolerances of ``test_dx_as_a_flipped_forward_conv_matches_the_jax
+    _kernel``); where a phase has no taps, its positions are 0 in both."""
+    _, x_shape, o, padding, dilation, stride = case
+    n, h, wd, c = x_shape
+    w_shape = (o, c, 3, 3)
+    _, (oh, ow) = _dx_pads(x_shape, w_shape, padding, dilation, stride)
+    rs = np.random.RandomState(12)
+    jg, tg = _pair(rs.randn(n, oh, ow, o).astype(np.float32), dt)
+    jw, tw = _pair((rs.randn(*w_shape) * (9 * c) ** -0.5).astype(np.float32),
+                   dt)
+    ref = jcf._convkxk_dx(jg, None, None, jw, x_shape, JAX_DT[x_dt], stride,
+                          padding, dilation, True)
+    got = _phased_plain(tg, tw, x_shape, TORCH_DT[x_dt], stride, padding,
+                        dilation)
+    assert got.dtype == TORCH_DT[x_dt]
+    assert tuple(got.shape) == tuple(ref.shape) == x_shape
+    tol = 1e-5 if dt == "f32" else 2e-2
+    scale = np.abs(_np(ref)).max()
+    assert np.abs(_np(got) - _np(ref)).max() <= tol * scale
+    for p in pcf.dx_phases(x_shape, w_shape, stride, padding, dilation):
+        if not p.runs:
+            assert not _np(ref)[:, p.a::stride[0], p.b::stride[1]].any()
+            assert not got[:, p.a::stride[0], p.b::stride[1]].any()
+
+
 def test_dx_on_cpu_counts_no_route_launch():
     """CPU tensors at widths and types that take the tensor cores on the
     card run the plain version: no launch and no route is counted."""
     def counts():
         return (pcf.convkxk_dx.launches, pcf.convkxk_dx_cuda.tc_launches,
+                pcf.convkxk_dx_cuda.tc_phase_launches,
                 pcf.convkxk_dx_cuda.simt_launches)
 
     g = torch.randn(2, 5, 5, 64).bfloat16()

@@ -1,9 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``gpu``): the flash
 forward, dQ and dK/dV backward (both routes of each, the SIMT kernel and
 the tensor-core kernel, and the rules that pick one), the fused optimizer
-update, the conv kernels (the 3x3 forward's, dx's and weight gradient's
-two routes each, the 1x1 GEMM's three, and the rules that pick one among
-them), the fused max pool, the embedding seqpool and the row LayerNorm
+update, the conv kernels (the 3x3 forward's and weight gradient's two
+routes each, the 3x3 dx's and the 1x1 GEMM's three, and the rules that
+pick one among them; the dx's phase entry's refusal of a bad plan), the
+fused max pool, the embedding seqpool and the row LayerNorm
 against their plain versions, and the kernel launches of a tiny BERT
 step.
 
@@ -929,23 +930,31 @@ def test_fwd_tc_launch_raises_and_never_falls_back(cuda):
     assert (_fwd_routes(cf), cf.convkxk.launches) == before
 
 
-# -- the tensor-core 3x3 dx (csrc/conv_kxk_fwd_tc.cu at dx_geometry) ----------
+# -- the tensor-core 3x3 dx (csrc/conv_kxk_fwd_tc.cu at dx_geometry, and by
+# phases at dx_phases) -----------------------------------------------------
 
 # ResNet-50's distinct 3x3 shapes (h, c, o, 3, stride): the step's 16 dx
-# launches, 13 at stride 1 and 3 at stride 2 (over g dilated by the
-# stride), and an odd H at stride 2
+# launches, 13 at stride 1 (one conv) and 3 at stride 2 (by phases), and an
+# odd H at stride 2
 DX_TC_SHAPES = sorted({s for s in chip_smoke.resnet50_conv_shapes()
                        if s[3] == 3}) + [(15, 64, 128, 3, 2)]
+DX_ROUTES = ("tc", "tc_phase", "simt")
 
 
 def _dx_routes(cf):
-    return cf.convkxk_dx_cuda.tc_launches, cf.convkxk_dx_cuda.simt_launches
+    return tuple(getattr(cf.convkxk_dx_cuda, f"{r}_launches")
+                 for r in DX_ROUTES)
+
+
+def _dx_after(before, route):
+    """``_dx_routes`` after one launch on ``route``."""
+    return tuple(n + (r == route) for n, r in zip(before, DX_ROUTES))
 
 
 def _dx_edge_case(dev, case, seed=0):
     """The arguments of one of chip_smoke's R1 tensor-core dx cases."""
     from paddle_tpu_torch.kernels import conv_fused as cf
-    _, (h, wd, c), o, batch, pad, dil, x_dtype, stride = case
+    _, (h, wd, c), o, batch, pad, dil, x_dtype, stride, _ = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     x_shape = (batch, h, wd, c)
     w = (torch.randn(o, c, 3, 3, device=dev, generator=gen)
@@ -964,25 +973,29 @@ def _dx_edge_case(dev, case, seed=0):
     + [c[0] for c in chip_smoke.R1_DX_TC_CASES])
 def test_dx_tc_route_matches_plain_version(cuda, case):
     """bf16 at the gate of chip_smoke's R1 (2e-2 of max |plain|), a bf16
-    and a float32 dx at ResNet-50's 3x3 shapes, stride 1 and 2, and an odd
-    H at stride 2 (batch 2), and R1's dilated, uneven-padding, ragged-M and
-    float32-dx cases at stride 1 and its stride-2 and (2, 1) ones."""
+    and a float32 dx at ResNet-50's 3x3 shapes, stride 1 (one conv) and 2
+    (by phases), and an odd H at stride 2 (batch 2), and R1's cases, each
+    on the route it names: dilated, uneven-padding, ragged-M and
+    float32-dx ones at stride 1, and by phases at stride 2 and (2, 1), a
+    float32 dx, phases no tap reaches, O = C = 192 and stride 3."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     kind, spec = case
     if kind == "resnet":
         x, w, g = chip_smoke.r_inputs(spec, 2, torch.bfloat16, cuda, 0)
         s = spec[4]
+        route = "tc" if s == 1 else "tc_phase"
         arg_sets = [(g, None, None, w, x.shape, x_dtype, (s, s),
                      ((1, 1), (1, 1)), (1, 1))
                     for x_dtype in (torch.bfloat16, torch.float32)]
     else:
+        route = spec[8]
         arg_sets = [_dx_edge_case(cuda, spec)]
     for args in arg_sets:
         before = _dx_routes(cf), cf.convkxk_dx.launches
         got = cf.convkxk_dx_cuda(*args)
         torch.cuda.synchronize()
         assert (_dx_routes(cf), cf.convkxk_dx.launches) == \
-            ((before[0][0] + 1, before[0][1]), before[1] + 1)
+            (_dx_after(before[0], route), before[1] + 1)
         ref = cf.convkxk_dx_reference(*args)
         assert got.dtype == ref.dtype == args[5]
         assert got.shape == ref.shape
@@ -993,9 +1006,10 @@ def test_dx_tc_route_matches_plain_version(cuda, case):
 def test_dx_route_counters_follow_the_rule(cuda):
     """Of CONV_SHAPES' 3x3 convs only the one at C = O = 64 (stride 2)
     takes the tensor cores (the rest have C = 16 or 3, O = 70 or 130); at
-    C = O = 64, stride 1 and 2, bf16 without a fold takes them, and a
-    fold, float32 and a g off 16 bytes take SIMT. Every launch counts in
-    ``convkxk_dx.launches`` too, and each dx equals its plain version."""
+    C = O = 64 bf16 without a fold takes them, as one conv at stride 1 and
+    by phases at stride 2, and a fold, float32 and a g off 16 bytes take
+    SIMT. Each call counts one on its route and in ``convkxk_dx.launches``,
+    and each dx equals its plain version."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     cases = []
     for shape in CONV_SHAPES + [(8, 64, 64, 3, 1)]:
@@ -1003,16 +1017,17 @@ def test_dx_route_counters_follow_the_rule(cuda):
             continue
         for dtype in (torch.float32, torch.bfloat16):
             for extra in (False, True):
-                want = "tc" if dtype == torch.bfloat16 and not extra and \
+                want = ("tc" if shape[4] == 1 else "tc_phase") \
+                    if dtype == torch.bfloat16 and not extra and \
                     shape[1:3] == (64, 64) else "simt"
                 cases.append((_conv_case(cuda, shape, dtype, extra), want))
+    assert {want for _, want in cases} == set(DX_ROUTES)
     for calls, want in cases:
         kern, plain = calls["convkxk_dx"]
         before, n = _dx_routes(cf), cf.convkxk_dx.launches
         got = kern()
         torch.cuda.synchronize()
-        assert _dx_routes(cf) == ((before[0] + 1, before[1]) if want == "tc"
-                                  else (before[0], before[1] + 1))
+        assert _dx_routes(cf) == _dx_after(before, want)
         assert cf.convkxk_dx.launches == n + 1
         ref = plain()
         tol = 1e-4 if got.dtype == torch.float32 else 2e-2
@@ -1027,16 +1042,17 @@ def test_dx_route_counters_follow_the_rule(cuda):
     before = _dx_routes(cf)
     got = cf.convkxk_dx_cuda(*args)
     torch.cuda.synchronize()
-    assert _dx_routes(cf) == (before[0], before[1] + 1)
+    assert _dx_routes(cf) == _dx_after(before, "simt")
     assert _rel_err(got, cf.convkxk_dx_reference(*args)) < 2e-2
 
 
 def test_dx_tc_launch_raises_and_never_falls_back(cuda):
-    """The tensor-core dx's wrapper launches at stride 2 (over g dilated
-    by the stride) and counts nothing; it refuses a fold, at stride 1 and
-    2, and float32 before any launch, and the forward's C entry C = 16:
-    the launch raises, and no other kernel or plain version runs in its
-    place."""
+    """The tensor-core dx's wrapper launches ``"tc"`` at stride 2 (over g
+    dilated by the stride, as no rule picks it) and ``"tc_phase"`` at
+    stride 1 (one phase), each matching its plain version, and counts
+    nothing; both refuse a fold, at stride 1 and 2, and float32 before any
+    launch, and their C entries C = 16: the launch raises, and no other
+    kernel or plain version runs in its place."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     pads = ((1, 1), (1, 1))
     x, w, g = chip_smoke.r_inputs((8, 64, 64, 3, 1), 2, torch.bfloat16, cuda,
@@ -1048,15 +1064,27 @@ def test_dx_tc_launch_raises_and_never_falls_back(cuda):
     mask = torch.relu(g)
     before = _dx_routes(cf), cf.convkxk_dx.launches
     s2 = (g2, None, None, w, x.shape, x.dtype, (2, 2), pads, (1, 1))
-    got = cf.convkxk_dx_launch("tc", *s2)
-    torch.cuda.synchronize()
+    with chip_smoke.dilations() as dilated:
+        got = cf.convkxk_dx_launch("tc", *s2)
+        torch.cuda.synchronize()
+    assert dilated == [(2, 2)]
     assert _rel_err(got, cf.convkxk_dx_reference(*s2)) < 2e-2
-    with pytest.raises(ValueError, match="fold"):
-        cf.convkxk_dx_launch("tc", g2, torch.relu(g2), None, w, x.shape,
-                             x.dtype, (2, 2), pads, (1, 1))
-    with pytest.raises(TypeError):
-        cf.convkxk_dx_launch("tc", g2.float(), None, None, w.float(),
-                             x.shape, torch.float32, (2, 2), pads, (1, 1))
+    s1 = (g, None, None, w, x.shape, x.dtype, (1, 1), pads, (1, 1))
+    got = cf.convkxk_dx_launch("tc_phase", *s1)
+    torch.cuda.synchronize()
+    assert _rel_err(got, cf.convkxk_dx_reference(*s1)) < 2e-2
+    for route in ("tc", "tc_phase"):
+        with pytest.raises(ValueError, match="fold"):
+            cf.convkxk_dx_launch(route, g2, torch.relu(g2), None, w, x.shape,
+                                 x.dtype, (2, 2), pads, (1, 1))
+        with pytest.raises(TypeError):
+            cf.convkxk_dx_launch(route, g2.float(), None, None, w.float(),
+                                 x.shape, torch.float32, (2, 2), pads,
+                                 (1, 1))
+    with pytest.raises(RuntimeError,
+                       match="conv_kxk_dx_phase_tc launch failed"):
+        cf.convkxk_dx_launch("tc_phase", g16, None, None, w16, x16.shape,
+                             x16.dtype, (1, 1), pads, (1, 1))
     with pytest.raises(ValueError, match="fold"):
         cf.convkxk_dx_launch("tc", g, mask, None, w, x.shape, x.dtype,
                              (1, 1), pads, (1, 1))
@@ -1078,8 +1106,9 @@ def test_dx_tc_launch_raises_and_never_falls_back(cuda):
 def test_conv2d_bn_act_3x3_bf16_backward_takes_the_tensor_core_dx(cuda):
     """The autograd route on the card, as a training step calls it (no
     epilogue, so nothing folds): a bf16 3x3 at C = O = 64 takes the
-    tensor-core dx at stride 1 and at stride 2; the gradients equal the
-    CPU's plain route within 2e-2 of their largest magnitude."""
+    tensor-core dx, as one conv at stride 1 and by phases at stride 2; the
+    gradients equal the CPU's plain route within 2e-2 of their largest
+    magnitude."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     gen = torch.Generator().manual_seed(3)
     x = torch.randn(2, 9, 9, 64, generator=gen).bfloat16()
@@ -1095,10 +1124,59 @@ def test_conv2d_bn_act_3x3_bf16_backward_takes_the_tensor_core_dx(cuda):
             grads = torch.autograd.grad(out, leaves, cot.to(dev))
             if dev != "cpu":
                 torch.cuda.synchronize()
-                assert _dx_routes(cf) == (before[0] + 1, before[1])
+                assert _dx_routes(cf) == _dx_after(
+                    before, "tc" if stride == 1 else "tc_phase")
             outs[str(dev)] = grads
         for a, b in zip(outs["cpu"], outs[str(cuda)]):
             assert _rel_err(b.cpu(), a) < 2e-2, stride
+
+
+def test_dx_phase_entry_refuses_a_plan_that_does_not_tile_dx(cuda):
+    """``conv_kxk_dx_phase_tc`` runs only the plan ``dx_phases`` makes:
+    with a phase dropped, a padding or a dilation changed, the phases out
+    of order, or a phase without taps added, it returns
+    cudaErrorInvalidValue and writes nothing of dx; the plan itself runs
+    and matches the plain version."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import conv_fused as cf
+    from paddle_tpu_torch.kernels import tiles
+    shape, pads = (15, 64, 128, 3, 2), ((1, 1), (1, 1))
+    x, w, g = chip_smoke.r_inputs(shape, 2, torch.bfloat16, cuda, 0)
+    args = (x.shape, w.shape, (2, 2), pads, (1, 1))
+    phases = cf.dx_phases(*args)
+    plan = [p for p in phases if p.runs]
+    wk = cf.phase_weights(w, plan)
+
+    def run(rows):
+        dx = torch.full(x.shape, 7.0, device=cuda, dtype=torch.bfloat16)
+        flat = [v for r in rows for v in r]
+        err = tiles.fwd_tc_lib().conv_kxk_dx_phase_tc(
+            g.data_ptr(), wk.data_ptr(), dx.data_ptr(),
+            (ctypes.c_int * max(1, len(flat)))(*flat), len(rows),
+            tiles.geo_arg(cf.geometry(*args)), 1, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return err, dx
+
+    good = [(p.a, p.b, *p.geo) for p in plan]
+    err, dx = run(good)
+    assert err == 0 and len(good) == 4
+    ref = cf.convkxk_dx_reference(g, None, None, w, x.shape, x.dtype,
+                                  (2, 2), pads, (1, 1))
+    assert _rel_err(dx, ref) < 2e-2
+    wrong_pad = [list(r) for r in good]
+    wrong_pad[1][13] += 1
+    wrong_dil = [list(r) for r in good]
+    wrong_dil[3][15] = 2
+    empty = cf.dx_phases(x.shape, w.shape, (2, 2), ((2, 2), (2, 2)),
+                         (2, 2))[1]
+    assert not empty.runs
+    for rows in (good[1:], good[:3], wrong_pad, wrong_dil, good[::-1],
+                 good + [(empty.a, empty.b, *empty.geo)]):
+        err, dx = run(rows)
+        assert err == 1
+        assert bool((dx == 7.0).all())
 
 
 # -- brgemm's tensor-core routes (the tensor-core conv kernels at 1x1) ---------
