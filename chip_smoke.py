@@ -137,8 +137,8 @@ Back on the ResNet-50 path:
 R3. bench    the bf16 bench step at batch 256 x 224 in the lowp default and
              in pure bf16, the pool knob on: the main path's counted step
              (launches as in R2, every 3x3 forward, dx and weight gradient
-             on the tensor cores, the 3 stride-2 dx by phases and no g
-             dilated, the 1x1 GEMMs 72 on the tensor-core
+             on the tensor cores, the 3 stride-2 dx by phases, the 1x1
+             GEMMs 72 on the tensor-core
              forward and 36 on the tensor-core weight gradient), timed
              steps (imgs/s over all of them), one profiled step each
              (device busy time, idle share over its own wall time; its own
@@ -162,11 +162,11 @@ R4. numbers  each conv and pool kernel row's device time a launch beside
              each conv kernel's rows (the tensor-core ones share their
              kernels between 1x1 and 3x3 convs and the 3x3 dx) from the
              step's calls at batch 256 in bf16 launched on each route in
-             five profiled sessions, each tensor-core row beside its SIMT
+             four profiled sessions, each tensor-core row beside its SIMT
              twin on the same calls (``simt_ms``), the dx at stride 1 and
-             at stride 2 apart on either route, and the stride-2 dx by
-             phases beside the tensor-core route over the dilated g on the
-             same calls, its kernel and its dilation of g apart.
+             at stride 2 apart on either route, and cuDNN's stride-2 input
+             gradient on the phases' calls by its device time too, in a
+             session of its own.
 
 Then the serving path:
 
@@ -2646,25 +2646,6 @@ def phase_resnet_train(dev, seed):
     return rec
 
 
-@contextlib.contextmanager
-def dilations():
-    """The strides above (1, 1) at which ``conv_fused.dilate_cotangent``
-    dilates a g while the block runs (a list it fills)."""
-    from paddle_tpu_torch.kernels import conv_fused as cf
-    seen, dilate = [], cf.dilate_cotangent
-
-    def counted(g, stride):
-        if tuple(stride) != (1, 1):
-            seen.append(tuple(stride))
-        return dilate(g, stride)
-
-    cf.dilate_cotangent = counted
-    try:
-        yield seen
-    finally:
-        cf.dilate_cotangent = dilate
-
-
 def phase_resnet_bench(dev, seed):
     """R3 + R4: the bench step (``paddle_tpu_torch/bench.py``) at batch
     256 x 224 in bf16 with the conv and pool knobs on
@@ -2672,7 +2653,7 @@ def phase_resnet_bench(dev, seed):
     each: a warm-up step; the counted step of the main path (counts set to
     0 just before, read just after: 108/16/16/16 conv, the 16 3x3
     forwards, the 16 3x3 dx (13 at stride 1 as one conv, 3 at stride 2 by
-    phases, no g dilated: ``dilations``) and the 16 weight gradients
+    phases) and the 16 weight gradients
     on the tensor cores, the 108 1x1 GEMMs 72 on the tensor-core forward
     and 36 on the tensor-core weight gradient (``routes``), 1/1 pool);
     timed steps (imgs/s over all of them); one profiled step (device busy
@@ -2702,16 +2683,12 @@ def phase_resnet_bench(dev, seed):
         losses = [step().item()]
         torch.cuda.synchronize()
         zero_r_counts()
-        with dilations() as dilated:
-            losses.append(step().item())           # the main path's step
-            torch.cuda.synchronize()
+        losses.append(step().item())               # the main path's step
+        torch.cuda.synchronize()
         counts = r_counts()
         if counts != routes(torch.bfloat16):
             fail("R3", f"{label}: launches in the step {counts}, expected "
                        f"{routes(torch.bfloat16)}")
-        if dilated:
-            fail("R3", f"{label}: the step dilated g at strides {dilated}: "
-                       f"its stride-2 dx must run by phases")
         rec = {}
         if lowp:
             set_resnet_knobs(pool=False)
@@ -2845,16 +2822,11 @@ def library_call(name, shape, x, w, g):
 
 
 # R4's timed parts: (row, route, the ``conv_calls`` calls it launches on
-# that route) over the bf16 step's calls, and the five profiled sessions
+# that route) over the bf16 step's calls, and the four profiled sessions
 # that run them, in each of which no part's kernel symbol repeats. A
 # tensor-core row shares its kernel with another (the 3x3 forward's runs
 # the 1x1 "nn" GEMMs and the 3x3 dx, the weight gradient's the "tn" ones),
-# so the step's own profile cannot time it apart. A part whose route is
-# not its row's (``row_route``) is a yardstick on the row's calls, not in
-# the row's time: beside the stride-2 dx by phases, the tensor-core dx
-# over g dilated by the stride ("tc" at stride 2), which the phases
-# replaced on the step's path, and that dilation alone ("dilate":
-# ``conv_fused.dilate_cotangent``, a zero fill and a strided copy)
+# so the step's own profile cannot time it apart
 R4_PARTS = {
     "brgemm_nn": ("brgemm", "simt", ("brgemm_fwd", "brgemm_dx")),
     "brgemm_tn": ("brgemm", "simt", ("brgemm_dw",)),
@@ -2868,29 +2840,24 @@ R4_PARTS = {
     "convkxk_dx_tc_s1": ("convkxk_dx_tc", "tc", ("convkxk_dx",)),
     "convkxk_dx_tc_phase": ("convkxk_dx_tc_phase", "tc_phase",
                             ("convkxk_dx",)),
-    "convkxk_dx_tc_s2": ("convkxk_dx_tc_phase", "tc", ("convkxk_dx",)),
-    "convkxk_dx_tc_dilate": ("convkxk_dx_tc_phase", "dilate",
-                             ("convkxk_dx",)),
     "convkxk_dw": ("convkxk_dw", "simt", ("convkxk_dw",)),
     "convkxk_dw_tc": ("convkxk_dw_tc", "tc", ("convkxk_dw",)),
 }
 # the conv strides whose calls a part takes (all where it is not named):
 # the dx is timed at stride 1 and at stride 2 apart on every route
 R4_STRIDES = {"convkxk_dx_s1": (1,), "convkxk_dx_s2": (2,),
-              "convkxk_dx_tc_s1": (1,), "convkxk_dx_tc_phase": (2,),
-              "convkxk_dx_tc_s2": (2,), "convkxk_dx_tc_dilate": (2,)}
+              "convkxk_dx_tc_s1": (1,), "convkxk_dx_tc_phase": (2,)}
 R4_SESSIONS = (("brgemm_nn", "convkxk_tc", "convkxk_dw_tc", "convkxk",
                 "convkxk_dw", "convkxk_dx_s1"),
-               ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw",
-                "convkxk_dx_tc_dilate"),
+               ("brgemm_tn", "brgemm_tc_fwd", "brgemm_tc_dw"),
                ("convkxk_dx_tc_s1", "convkxk_dx_s2"),
-               ("convkxk_dx_tc_s2",),
                ("convkxk_dx_tc_phase",))
-# the kernel symbols a part's records are read by where they are not its
-# row's (``R_SYMBOLS``): the dilation's bf16 zero fill and its copy (the
-# lead-in's fill is float32, and no other part of its session copies)
-R4_PART_SYMBOLS = {"convkxk_dx_tc_dilate": ("FillFunctor<c10::BFloat16>",
-                                            "direct_copy_kernel")}
+# the rows whose library call R4 also times by device time, on the row's
+# own calls in a session of its own (its CUDA-events time counts the
+# host's gaps in), and the symbol of the library's kernel, one record a
+# call: the stride-2 dx, whose cuDNN call runs one implicit-GEMM dgrad
+# kernel (beside a memset of dx, under a microsecond, not counted)
+R4_LIBRARY_SYMBOL = {"convkxk_dx_tc_phase": "dgrad"}
 
 
 # throwaway kernels launched at the start of each R4 session
@@ -2904,32 +2871,43 @@ def part_takes(part, call, stride):
         stride in R4_STRIDES.get(part, (stride,))
 
 
-def part_symbols(part):
-    """The kernel symbols whose records time the R4 part ``part``: one
-    record of each a call."""
-    return R4_PART_SYMBOLS.get(part, (R_SYMBOLS[R4_PARTS[part][0]],))
-
-
 def r4_row_parts(key):
     """The R4 parts whose calls row ``key``'s numbers are means over: all
     of the row's, so a tensor-core row's are the calls a bf16 step
-    launches on it (the stride-2 dx's beside their yardsticks) and a SIMT
-    twin's, which the step launches nowhere, all the step's calls of its
+    launches on it and a SIMT twin's, which the step launches nowhere, all the step's calls of its
     kernel."""
     return [p for p in R4_PARTS if R4_PARTS[p][0] == key]
 
 
-def row_route(row):
-    """The route of kernel row ``row``'s launches: the rest of its name
-    after its SIMT twin's (``TC_TWIN``), "simt" for a SIMT twin."""
-    return row[len(TC_TWIN[row]) + 1:] if row in TC_TWIN else "simt"
+def r4_lead_in(dev):
+    """Throwaway kernels at the start of an R4 session: a session's first
+    kernel records go missing (on the H100: its first three, in every
+    retry)."""
+    lead = torch.zeros(R4_LEAD_IN, device=dev)
+    for _ in range(R4_LEAD_IN):
+        lead.add_(1)
 
 
-def part_is_own(part):
-    """Whether the R4 part ``part`` times its row's own route, not a
-    yardstick on the row's calls."""
-    row, route, _ = R4_PARTS[part]
-    return route == row_route(row)
+def library_device(calls, symbol, dev, label):
+    """The mean device time a call of the library calls ``calls``, from
+    the records of its kernel ``symbol`` (one a call) in a profiled R4
+    session that runs them; None, logged, where the last session kept
+    another count of them (a library picks its kernels itself: it is a
+    yardstick, not a gate)."""
+    def run():
+        r4_lead_in(dev)
+        for fn in calls:
+            fn()
+
+    run()
+    _, rows, _ = profiled(run, label, expect={symbol: len(calls)})
+    got = [r for r in rows if symbol in r[0]]
+    if sum(r[1] for r in got) != len(calls):
+        log(f"[R4] {label}: {sum(r[1] for r in got)} records of {symbol} "
+            f"for {len(calls)} calls, its kernels {rows[:4]}; no device "
+            f"time kept")
+        return None
+    return sum(r[2] for r in got) / len(calls)
 
 
 def r4_records(call, route, shape, batch, dev):
@@ -2962,20 +2940,19 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     events, ``iters`` calls a distinct shape, weighted by how often the
     step runs it). Every conv kernel's rows are timed on the step's own
     calls at batch 256 in bf16, each route through its launch function
-    (``R4_PARTS``, five profiled sessions, ``R4_SESSIONS``): the
+    (``R4_PARTS``, four profiled sessions, ``R4_SESSIONS``): the
     tensor-core rows, whose kernels the 1x1 and 3x3 convs and the 3x3 dx
     share, and the SIMT twins, which the bf16 step launches nowhere
-    (``launches_per_step`` 0, ``timed_on``). A row's time is its own
-    parts' (``part_is_own``); the stride-2 dx by phases also carries its
-    yardsticks on the same calls, the tensor-core dx over the dilated g
-    and that dilation, as ``yardstick_ms`` (their sum), each part apart in
-    ``parts_ms`` and ``parts`` (with each part's own bound, plain and
-    library means and worst error). Each tensor-core row
+    (``launches_per_step`` 0, ``timed_on``). A row's time is its parts',
+    each part apart in ``parts_ms`` and ``parts`` (with each part's own
+    bound, plain and library means and worst error); a row of
+    ``R4_LIBRARY_SYMBOL`` also carries its library call's device time on
+    its calls as ``library_device_ms`` (``library_device``; None where no
+    record of its kernel came). Each tensor-core row
     also carries its twin's time on the same calls as ``simt_ms``. Each
     tensor-core call is held against its plain version on those inputs
     (``R_TOL``'s bf16 gates). A part fails unless its session keeps every
     record."""
-    from paddle_tpu_torch.kernels import conv_fused as cf
     shapes = resnet50_conv_shapes()
     counts = {}
     for sh in shapes:
@@ -2985,6 +2962,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
            for k in (*RESNET_KERNELS, *R4_PARTS)}
     parts = {p: [] for p in R4_PARTS}
     records = dict.fromkeys(R4_PARTS, 0)
+    lib_calls = {row: [] for row in R4_LIBRARY_SYMBOL}
     by_shape, checked, part_err = {}, {}, {}
     for shape, mult in counts.items():
         x, w, g = r_inputs(shape, R3_BATCH, torch.bfloat16, dev, seed)
@@ -2995,7 +2973,11 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
             # their rows'
             takers = [p for p in R4_PARTS if part_takes(p, name, shape[4])]
             t_plain = time_ms(plain, [()], iters)
-            t_lib = time_ms(library_call(name, shape, x, w, g), [()], iters)
+            lib = library_call(name, shape, x, w, g)
+            t_lib = time_ms(lib, [()], iters)
+            for row in {R4_PARTS[p][0] for p in takers}:
+                if row in lib_calls:
+                    lib_calls[row] += [lib] * mult
             for k in {R4_PARTS[p][0] for p in takers}.union(takers):
                 a = acc[k]
                 a["n"] += mult
@@ -3004,15 +2986,9 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                 a["plain_ms"] += mult * t_plain
                 a["library_ms"] += mult * t_lib
         for part, (row, route, calls) in R4_PARTS.items():
-            on = conv_calls(shape, x, w, g, route=None if route == "dilate"
-                            else dict.fromkeys(calls, route))
+            on = conv_calls(shape, x, w, g, route=dict.fromkeys(calls, route))
             for call in calls:
                 if call not in on or not part_takes(part, call, shape[4]):
-                    continue
-                if route == "dilate":
-                    parts[part] += [lambda g=g, s=shape[4]:
-                                    cf.dilate_cotangent(g, (s, s))] * mult
-                    records[part] += mult
                     continue
                 parts[part] += [on[call][0]] * mult
                 records[part] += mult * r4_records(call, route, shape,
@@ -3030,8 +3006,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                     fail("R4", f"{call} {shape} on {route} at batch "
                                f"{R3_BATCH}: |kernel-plain| / max|plain| "
                                f"{rel:.3e} against its {tol:g} gate")
-                if part_is_own(part):
-                    checked[row] = max(checked.get(row, 0.0), rel)
+                checked[row] = max(checked.get(row, 0.0), rel)
                 part_err[part] = max(part_err.get(part, 0.0), rel)
                 del got, ref
                 if row.startswith("brgemm"):
@@ -3047,11 +3022,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
     totals = {}
     for session in R4_SESSIONS:
         def run(session=session):
-            # a session's first kernel records go missing (on the H100: its
-            # first three, in every retry), so throwaway kernels lead in
-            lead = torch.zeros(R4_LEAD_IN, device=dev)
-            for _ in range(R4_LEAD_IN):
-                lead.add_(1)
+            r4_lead_in(dev)
             for part in session:
                 for fn in parts[part]:
                     fn()
@@ -3059,22 +3030,23 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
         run()
         # the sessions are retried until every part's records are all
         # there: its time is their sum
-        expect = {sym: records[p] for p in session for sym in part_symbols(p)}
+        expect = {R_SYMBOLS[R4_PARTS[p][0]]: records[p] for p in session}
         _, rows, _ = profiled(run, f"R4's parts {session}", expect=expect)
         for p in session:
-            totals[p] = 0.0
-            for sym in part_symbols(p):
-                got = [r for r in rows if sym in r[0]]
-                seen = sum(r[1] for r in got)
-                if seen != records[p]:
-                    fail("R4", f"{p}: the last of {PROFILE_SESSIONS} "
-                               f"sessions kept {seen} of {records[p]} {sym} "
-                               f"records")
-                totals[p] += sum(r[2] for r in got)
+            sym = R_SYMBOLS[R4_PARTS[p][0]]
+            got = [r for r in rows if sym in r[0]]
+            seen = sum(r[1] for r in got)
+            if seen != records[p]:
+                fail("R4", f"{p}: the last of {PROFILE_SESSIONS} sessions "
+                           f"kept {seen} of {records[p]} {sym} records")
+            totals[p] = sum(r[2] for r in got)
             if not totals[p]:
-                fail("R4", f"the session of {p} recorded no time for a "
-                           f"kernel of {part_symbols(p)} it launched")
-    del parts
+                fail("R4", f"the session of {p} recorded no time for the "
+                           f"{sym} kernel it launched")
+    lib_device = {row: library_device(calls, R4_LIBRARY_SYMBOL[row], dev,
+                                      f"R4's library calls of {row}")
+                  for row, calls in lib_calls.items()}
+    del parts, lib_calls
     torch.cuda.empty_cache()
     numbers = {}
     in_step = step_rec["kernels_in_step"]
@@ -3090,8 +3062,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
             fail("R4", f"{key}: {a['n']} calls of its parts in the shape "
                        f"table, {calls} in a bf16 step")
         mine = r4_row_parts(key)
-        own = [p for p in mine if part_is_own(p)]
-        ms = sum(totals[p] for p in own) / calls
+        ms = sum(totals[p] for p in mine) / calls
         rec = {"ms": ms, "launches_per_step": launches,
                "bound_ms": a["bound_ms"] / calls,
                "bound_by": "bytes" if a["bytes_bound"] * 2 > calls
@@ -3112,9 +3083,8 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                    rel_err_at_batch=part_err.get(p)) for p in mine}}
         if not launches:
             rec["timed_on"] = "bf16, the step's calls, on the SIMT route"
-        if own != mine:
-            rec["yardstick_ms"] = sum(totals[p] for p in mine
-                                      if p not in own) / calls
+        if key in lib_device:
+            rec["library_device_ms"] = lib_device[key]
         if key in by_shape:
             rec["by_shape"] = by_shape[key]
             for r in by_shape[key]:
@@ -3125,7 +3095,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
                         f"bound")
         if key in TC_TWIN:
             # the SIMT parts over the same calls as this row's kernel parts
-            twin = [q for p in own
+            twin = [q for p in mine
                     for q, (row, _, cs) in R4_PARTS.items()
                     if row == TC_TWIN[key] and cs == R4_PARTS[p][2]
                     and R4_STRIDES.get(q) == R4_STRIDES.get(p)]
@@ -3142,9 +3112,10 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
             + (f"; SIMT on the same calls {rec['simt_ms']:.3f} ms (device)"
                f"; worst |kernel-plain| / max|plain| on them "
                f"{rec['rel_err_at_batch']:.3e}" if key in TC_TWIN else "")
-            + (f"; its yardsticks on them {rec['yardstick_ms']:.3f} ms "
-               f"(device), {rec['yardstick_ms'] / ms:.2f}x" if own != mine
-               else ""))
+            + (f"; library by device time on them "
+               f"{rec['library_device_ms']:.4f} ms, the kernel "
+               f"{ms / rec['library_device_ms']:.2f}x it"
+               if rec.get("library_device_ms") else ""))
         if len(mine) > 1:
             for p in mine:
                 q = rec["parts"][p]
@@ -3160,7 +3131,7 @@ def phase_resnet_numbers(step_rec, dev, seed, iters=3):
 
     def kernel_ms(row):
         # a tensor-core row's kernel time over the bf16 step's calls
-        return sum(totals[p] for p in r4_row_parts(row) if part_is_own(p))
+        return sum(totals[p] for p in r4_row_parts(row))
 
     for sym in (FWD_TC_KERNEL, DW_TC_KERNEL):
         rows = [r for r in TC_KERNEL if TC_KERNEL[r] == sym]
@@ -4388,9 +4359,9 @@ def main(argv=None):
                 rec["launches_by_path"] = by_path[name]
             if name in TC_TWIN:
                 rec["simt_ms"] = report["resnet_numbers"][name]["simt_ms"]
-            if "yardstick_ms" in report["resnet_numbers"][name]:
-                rec["yardstick_ms"] = \
-                    report["resnet_numbers"][name]["yardstick_ms"]
+            if "library_device_ms" in report["resnet_numbers"][name]:
+                rec["library_device_ms"] = \
+                    report["resnet_numbers"][name]["library_device_ms"]
         elif name in pool_numbers:
             rec.update({k: pool_numbers[name][k] for k in keys})
             rec["call_ms"] = pool_numbers[name]["call_ms"]

@@ -377,6 +377,23 @@ PhaseAxis phase_axis(int a, int k, int s, int p, int d) {
   return ax;
 }
 
+// Phase (a, b) of the dx of conv d (conv_fused.py's dx_phases): the
+// stride-1 forward conv of g with the taps phase_axis finds on each axis,
+// C and O swapped, whose output is dx's rows a + sh*i and columns b + sw*j.
+Geo phase_geo(const Geo& d, int a, int b) {
+  const PhaseAxis ah = phase_axis(a, d.kh, d.sh, d.ph, d.dh);
+  const PhaseAxis aw = phase_axis(b, d.kw, d.sw, d.pw, d.dw);
+  return Geo{d.n, d.oh, d.ow, d.o, d.c, ah.taps, aw.taps,
+             (d.h - a + d.sh - 1) / d.sh, (d.w - b + d.sw - 1) / d.sw, 1, 1,
+             ah.pad, aw.pad, ah.dil, aw.dil};
+}
+
+// Whether a phase launches a kernel: it has taps, and dx has positions in
+// it.
+bool runs(const Geo& p) {
+  return p.n > 0 && p.kh > 0 && p.kw > 0 && p.oh > 0 && p.ow > 0;
+}
+
 }  // namespace
 
 // Same arguments as conv_kxk_fwd (conv_kxk.cu); wk is the weight laid out
@@ -411,20 +428,17 @@ extern "C" int conv_kxk_fwd_tc(const void* x, const void* wk, void* out,
 
 // The input gradient of a conv without a fold, by phases: g [N, OH, OW, O]
 // (bf16), dx [N, H, W, C] (bf16 or float32), dx_geo the conv's 15 ints (n,
-// h, w, c, o, kh, kw, oh, ow, sh, sw, ph0, pw0, dh, dw), plan n_phases
-// rows of 17 ints (a, b, then the phase conv's Geo), wk every phase's taps
-// [T_h, T_w, O, C] one after the other in the plan's order. Launches one
-// conv_kxk_fwd_tc_kernel<BN, true> a phase, in order, on `stream`;
-// allocates nothing and does not synchronize. Returns the first
-// cudaError_t (0 on success).
+// h, w, c, o, kh, kw, oh, ow, sh, sw, ph0, pw0, dh, dw), wk the taps of
+// every phase that runs, [T_h, T_w, O, C] one after the other in the order
+// (a, b) (conv_fused.py's phase_weights). Launches one
+// conv_kxk_fwd_tc_kernel<BN, true> a phase that runs (phase_geo), in that
+// order, on `stream`; allocates nothing and does not synchronize. Returns
+// the first cudaError_t (0 on success).
 // Refuses (cudaErrorInvalidValue), and computes nothing for, what
-// conv_kxk_fwd_tc refuses at the conv's or at a phase's geometry, a stride
-// or kernel extent past 2^12 a dimension (kh*sh, kw*sw), and a plan that
-// is not every phase with taps and positions, in order (a, b), each at the
-// geometry that phase_axis derives; the phases without taps are left to
-// the caller (dx zero-filled there).
+// conv_kxk_fwd_tc refuses at the conv's or at a phase's geometry, and a
+// stride or kernel extent past 2^12 a dimension (kh*sh, kw*sw). The
+// phases without taps are left to the caller (dx zero-filled there).
 extern "C" int conv_kxk_dx_phase_tc(const void* g, const void* wk, void* dx,
-                                    const int* plan, int n_phases,
                                     const int* dx_geo, int in_dt, int out_dt,
                                     void* stream) {
   const Geo d = to_geo(dx_geo);
@@ -438,39 +452,23 @@ extern "C" int conv_kxk_dx_phase_tc(const void* g, const void* wk, void* dx,
              static_cast<long long>(d.kh) * d.sh > 4096 ||
              static_cast<long long>(d.kw) * d.sw > 4096 ||
              misaligned(g, wk, dx);
-  // the plan against the phases the conv has, in order: the k-th phase
-  // with taps and positions is the plan's k-th row, and there are no more
-  int k = 0;
-  for (int a = 0; !bad && a < d.sh; ++a) {
-    const PhaseAxis ah = phase_axis(a, d.kh, d.sh, d.ph, d.dh);
-    const int rows = (d.h - a + d.sh - 1) / d.sh;
+  for (int a = 0; !bad && a < d.sh; ++a)
     for (int b = 0; !bad && b < d.sw; ++b) {
-      const PhaseAxis aw = phase_axis(b, d.kw, d.sw, d.pw, d.dw);
-      const int cols = (d.w - b + d.sw - 1) / d.sw;
-      if (ah.taps == 0 || aw.taps == 0 || rows <= 0 || cols <= 0 ||
-          d.n == 0)
-        continue;
-      const int want[17] = {a,       b,       d.n,    d.oh,   d.ow,   d.o,
-                            d.c,     ah.taps, aw.taps, rows,  cols,   1,
-                            1,       ah.pad,  aw.pad, ah.dil, aw.dil};
-      bad = k >= n_phases;
-      for (int v = 0; !bad && v < 17; ++v) bad = plan[17 * k + v] != want[v];
-      bad = bad || refuses(to_geo(plan + 17 * k + 2));
-      ++k;
+      const Geo p = phase_geo(d, a, b);
+      bad = runs(p) && refuses(p);
     }
-  }
-  if (bad || k != n_phases) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
   const igemm::Epilogue ep{nullptr, nullptr, nullptr, dx, 0, out_dt, 0, d.c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wk);
-  for (int p = 0; p < n_phases; ++p) {
-    const int* row = plan + 17 * p;
-    const Geo pg = to_geo(row + 2);
-    const PhaseOut po{d.h, d.w, row[0], row[1], d.sh, d.sw};
-    const int err = launch_any<true>(g, w, ep, pg, pg.n * pg.oh * pg.ow, po,
-                                     s);
-    if (err != 0) return err;
-    w += static_cast<size_t>(pg.kh) * pg.kw * pg.c * pg.o;
-  }
+  for (int a = 0; a < d.sh; ++a)
+    for (int b = 0; b < d.sw; ++b) {
+      const Geo p = phase_geo(d, a, b);
+      if (!runs(p)) continue;
+      const PhaseOut po{d.h, d.w, a, b, d.sh, d.sw};
+      const int err = launch_any<true>(g, w, ep, p, p.n * p.oh * p.ow, po, s);
+      if (err != 0) return err;
+      w += static_cast<size_t>(p.kh) * p.kw * p.c * p.o;
+    }
   return 0;
 }

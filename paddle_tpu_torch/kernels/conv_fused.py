@@ -46,8 +46,7 @@ Routing, as in the JAX module (``_dispatch``, ``_pallas_bwd``):
   straight from its epilogue, with no zero between g's rows read. The
   rest (a fold, float32) runs ``conv_kxk_dx`` of ``csrc/conv_kxk.cu``
   (float32 FMAs). ``convkxk_dx_launch`` launches the one it is named, or
-  raises; its ``"tc"`` at a stride above 1 first dilates g by the stride
-  as the reference does (``dilate_cotangent``), which no rule picks.
+  raises.
 
 The plain versions are the same functions in PyTorch: a float32
 ``F.conv2d`` (and its gradients through autograd) on the padded input, the
@@ -278,30 +277,16 @@ def dx_route(dtype, c, o, aligned, stride, folded):
     return "tc" if tuple(stride) == (1, 1) else "tc_phase"
 
 
-def dilate_cotangent(g, stride):
-    """g [N, OH, OW, O] with ``stride - 1`` zeros between its rows and
-    its columns, as the reference pads it inside (``lax.pad``'s interior
-    padding): g itself at stride (1, 1), else a zero tensor [N, (OH - 1) *
-    sh + 1, (OW - 1) * sw + 1, O] in g's dtype on g's device with g at
-    every sh-th row and sw-th column. A strided dx is the stride-1 dx of
-    this tensor; the pads at its edges stay implicit (a tap past either
-    edge reads 0)."""
-    sh, sw = stride
-    if (sh, sw) == (1, 1):
-        return g
-    n, oh, ow, o = g.shape
-    out = g.new_zeros((n, (oh - 1) * sh + 1, (ow - 1) * sw + 1, o))
-    out[:, ::sh, ::sw] = g
-    return out
-
-
 def dx_geometry(x_shape, w_shape, stride, padding, dilation):
     """The Geo (15 ints, as ``geometry``) of the stride-1 forward conv
-    that a dx is: ``dilate_cotangent``'s g [N, (OH - 1) * sh + 1, (OW - 1)
-    * sw + 1, O] as x, the weight's taps flipped with C and O swapped as
-    w, output [N, H, W, C]; the low padding ``(k - 1) * d - p0`` as the
-    reference pads g (a tap past either edge of g reads 0, so the high
-    padding follows from the output size). Raises on a stride below 1."""
+    that a dx is: g [N, OH, OW, O] with ``stride - 1`` zeros between its
+    rows and its columns, as the reference pads it inside (``lax.pad``'s
+    interior padding), of shape [N, (OH - 1) * sh + 1, (OW - 1) * sw + 1,
+    O], as x, the weight's taps flipped with C and O swapped as w, output
+    [N, H, W, C]; the low padding ``(k - 1) * d - p0`` as the reference
+    pads g (a tap past either edge of g reads 0, so the high padding
+    follows from the output size). The ``"tc"`` route runs it at stride
+    (1, 1), where g is itself. Raises on a stride below 1."""
     if min(stride) < 1:
         raise ValueError(f"a dx takes strides of 1 or more, not "
                          f"{tuple(stride)}")
@@ -316,7 +301,8 @@ class DxPhase(NamedTuple):
     columns ``b + sw * j``, the taps of the conv's kernel whose products
     reach them (``taps_h``, ``taps_w``, each from the largest down: the
     order of the phase conv's taps) and the Geo (15 ints, as
-    ``geometry``) of the stride-1 forward conv of g that computes them."""
+    ``geometry``) of the stride-1 forward conv of g that computes them
+    (``conv_kxk_dx_phase_tc``'s ``phase_geo`` derives the same)."""
     a: int
     b: int
     taps_h: Tuple[int, ...]
@@ -414,10 +400,16 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
     refuse a fold and operands other than bfloat16 before any launch, at
     every stride, and their C entries (which then compute nothing)
     channels that are not multiples of 64 and a misaligned g. ``"tc"``
-    dilates g first (``dilate_cotangent``) where the stride is above 1;
-    ``"tc_phase"`` runs the phases of ``dx_phases`` that have taps, in one
-    call of its C entry, and zero-fills dx first where a phase has none.
-    ``facts``: this call's ``_dx_facts``, where the caller has them."""
+    takes stride (1, 1) alone; ``"tc_phase"`` runs the phases of
+    ``dx_phases`` that have taps, in one call of its C entry, and
+    zero-fills dx first where a phase has none. ``facts``: this call's
+    ``_dx_facts``, where the caller has them."""
+    if route not in ("tc", "tc_phase", "simt"):
+        raise ValueError(f"no input-gradient route {route!r}")
+    if route == "tc" and tuple(stride) != (1, 1):
+        raise ValueError(f"the tc dx takes stride (1, 1), not "
+                         f"{tuple(stride)}: a larger stride runs by phases "
+                         f"(tc_phase)")
     dev = g.device
     geo = geometry(x_shape, w.shape, stride, padding, dilation)
     n, h, wd, c, o, kh, kw, oh, ow = geo[:9]
@@ -429,8 +421,6 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
     if x_dtype not in DTYPE_CODES:
         raise TypeError(f"x_dtype {x_dtype} is not float32/bfloat16")
     folded, dtype, _ = facts or _dx_facts(g, mask, scale, w, x_dtype)
-    if route not in ("tc", "tc_phase", "simt"):
-        raise ValueError(f"no input-gradient route {route!r}")
     if route != "simt":
         if folded:
             raise ValueError("conv_kxk_fwd_tc computes a dx that folds "
@@ -440,7 +430,6 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
     zeroed = False
     if route == "tc":
         geo = dx_geometry(x_shape, w.shape, stride, padding, dilation)
-        g = dilate_cotangent(g, stride)
         # [KH, KW, O, C] with the taps flipped: the forward's [KH, KW, C, O]
         # for a conv of O input and C output channels
         wk = w.flip(2, 3).permute(2, 3, 0, 1).contiguous()
@@ -458,11 +447,8 @@ def convkxk_dx_launch(route, g, mask, scale, w, x_shape, x_dtype, stride,
         if route == "tc_phase":
             name = "conv_kxk_dx_phase_tc"
             err = tiles.fwd_tc_lib().conv_kxk_dx_phase_tc(
-                g.data_ptr(), wk.data_ptr(), dx.data_ptr(),
-                (ctypes.c_int * (17 * len(plan)))(
-                    *(v for p in plan for v in (p.a, p.b, *p.geo))),
-                len(plan), geo_arg(geo), DTYPE_CODES[g.dtype],
-                DTYPE_CODES[x_dtype], stream)
+                g.data_ptr(), wk.data_ptr(), dx.data_ptr(), geo_arg(geo),
+                DTYPE_CODES[g.dtype], DTYPE_CODES[x_dtype], stream)
         elif route == "tc":
             name = "conv_kxk_fwd_tc"
             err = tiles.fwd_tc_lib().conv_kxk_fwd_tc(

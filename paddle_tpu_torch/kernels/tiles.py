@@ -121,8 +121,8 @@ FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + \
 DW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # the tensor-core forward's second entry, a dx by phases
-DX_PHASE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] \
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+DX_PHASE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
+    [ctypes.c_void_p]
 
 
 def _load(name, argtypes, **more):

@@ -443,7 +443,8 @@ def test_kernels_line_has_the_tensor_core_dx_phase_row():
     row = chip_smoke.KERNELS["convkxk_dx_tc_phase"]
     assert row == chip_smoke.KERNELS["convkxk_dx_tc"]
     assert chip_smoke.TC_TWIN["convkxk_dx_tc_phase"] == "convkxk_dx"
-    assert chip_smoke.row_route("convkxk_dx_tc_phase") == "tc_phase"
+    assert chip_smoke.R4_PARTS["convkxk_dx_tc_phase"] == (
+        "convkxk_dx_tc_phase", "tc_phase", ("convkxk_dx",))
     assert chip_smoke.TC_KERNEL["convkxk_dx_tc_phase"] == \
         chip_smoke.FWD_TC_KERNEL
     assert chip_smoke.R_SYMBOLS["convkxk_dx_tc_phase"] == "conv_kxk_fwd_tc"
@@ -457,32 +458,64 @@ def test_kernels_line_has_the_tensor_core_dx_phase_row():
                 chip_smoke.TC_RECORDS["convkxk_dx_tc_phase"] == 4
 
 
-def test_r3_sees_every_dilation_of_g():
-    """R3's check that the step dilates no g: ``dilations`` records each
-    ``dilate_cotangent`` call at a stride above 1 (the one a dx that
-    reaches ``convkxk_dx_launch("tc")`` makes), none at (1, 1), and puts
-    the function back."""
-    from paddle_tpu_torch.kernels import conv_fused as cf
-    plain = cf.dilate_cotangent
-    g = torch.randn(1, 3, 3, 2)
-    with chip_smoke.dilations() as seen:
-        cf.dilate_cotangent(g, (1, 1))
-        assert tuple(cf.dilate_cotangent(g, (2, 1)).shape) == (1, 5, 3, 2)
-    assert seen == [(2, 1)]
-    assert cf.dilate_cotangent is plain
+def test_r4_parts_time_their_rows_route():
+    """Every R4 part launches its row's own route: a tensor-core row's is
+    the rest of its name after its SIMT twin's (``TC_TWIN``), a SIMT
+    twin's "simt"; no part of a row is a yardstick on another route."""
+    for part, (row, route, _) in chip_smoke.R4_PARTS.items():
+        twin = chip_smoke.TC_TWIN.get(row)
+        assert route == (row[len(twin) + 1:] if twin else "simt"), part
 
 
-def test_r4_yardsticks_are_the_phase_rows_alone():
-    """Only the stride-2 dx by phases has parts that are not its own
-    route's: the tensor-core dx over the dilated g and its dilation; every
-    other part times its row's route."""
-    not_own = [p for p in chip_smoke.R4_PARTS
-               if not chip_smoke.part_is_own(p)]
-    assert not_own == ["convkxk_dx_tc_s2", "convkxk_dx_tc_dilate"]
-    for row in chip_smoke.RESNET_KERNELS:
-        assert chip_smoke.row_route(row) == (
-            row[len(chip_smoke.TC_TWIN[row]) + 1:]
-            if row in chip_smoke.TC_TWIN else "simt")
+def _fake_profile(monkeypatch, rows):
+    """``chip_smoke.profiled`` replaced by one that runs ``fn`` and returns
+    ``rows`` as its records; returns the list of the ``expect`` it got."""
+    asked = []
+
+    def profiled(fn, label, expect=None):
+        fn()
+        asked.append(expect)
+        return sum(r[2] for r in rows), rows, 1.0
+
+    monkeypatch.setattr(chip_smoke, "profiled", profiled)
+    monkeypatch.setattr(chip_smoke, "r4_lead_in", lambda dev: None)
+    return asked
+
+
+def test_r4_library_device_time_is_the_mean_of_its_kernels_records(
+        monkeypatch):
+    """``library_device`` runs the library calls (twice: once to warm up,
+    once profiled), asks the profile for one record of the library's
+    kernel a call, and gives the mean of those records' device time a
+    call, other records (a memset) left out."""
+    ran = []
+    calls = [lambda i=i: ran.append(i) for i in range(3)]
+    rows = [("sm90_xmma_dgrad_implicit_gemm_indexed_bf16", 3, 0.6),
+            ("Memset (Device)", 3, 0.003)]
+    asked = _fake_profile(monkeypatch, rows)
+    got = chip_smoke.library_device(calls, "dgrad", "cpu", "label")
+    assert got == pytest.approx(0.2)
+    assert ran == [0, 1, 2, 0, 1, 2]
+    assert asked == [{"dgrad": 3}]
+    assert set(chip_smoke.R4_LIBRARY_SYMBOL) == {"convkxk_dx_tc_phase"}
+    assert set(chip_smoke.R4_LIBRARY_SYMBOL) <= set(
+        chip_smoke.RESNET_KERNELS)
+
+
+@pytest.mark.parametrize("rows", [
+    [("Memset (Device)", 3, 0.003)],
+    [("sm90_xmma_dgrad_implicit_gemm_indexed_bf16", 2, 0.4)],
+    [("sm90_xmma_dgrad_a", 2, 0.4), ("sm90_xmma_dgrad_b", 2, 0.4)],
+], ids=["no_kernel_record", "a_record_short", "a_record_over"])
+def test_r4_library_device_time_is_none_where_a_record_is_off(monkeypatch,
+                                                              rows):
+    """Where the profile keeps another count of the library's kernel than
+    one a call (the library picked other kernels, or a record went
+    missing), ``library_device`` keeps no time: None, not a mean over the
+    records it has."""
+    _fake_profile(monkeypatch, rows)
+    calls = [lambda: None] * 3
+    assert chip_smoke.library_device(calls, "dgrad", "cpu", "label") is None
 
 
 @pytest.mark.parametrize("dtype,base,table,tc,phase,simt", [
@@ -698,17 +731,15 @@ def test_r4_parts_time_every_routed_row_apart():
     """At every ResNet-50 shape, each call of ``conv_calls`` is launched in
     exactly one SIMT part and, where the bf16 step takes the tensor cores,
     in exactly one kernel part of that route, its row's own: the dx at
-    stride 1 and at stride 2 apart on every route, in different sessions;
-    beside the stride-2 dx by phases its yardsticks on the same calls, the
-    tensor-core dx over the dilated g and that dilation in a part of its
-    own. No kernel symbol repeats within a session; every tensor-core part
-    has a SIMT part over the same calls; every ResNet kernel row has a
+    stride 1 and at stride 2 apart on every route, in different sessions.
+    No kernel symbol repeats within a session; every tensor-core part has
+    a SIMT part over the same calls; every ResNet kernel row has a
     part."""
     parts, sessions = chip_smoke.R4_PARTS, chip_smoke.R4_SESSIONS
     assert sorted(p for s in sessions for p in s) == sorted(parts)
-    assert len(sessions) == 5
+    assert len(sessions) == 4
     for session in sessions:
-        syms = [sym for p in session for sym in chip_smoke.part_symbols(p)]
+        syms = [chip_smoke.R_SYMBOLS[parts[p][0]] for p in session]
         assert all(a not in b for a in syms for b in syms if a is not b)
     for shape in sorted(set(chip_smoke.resnet50_conv_shapes())):
         for call in (("brgemm_fwd", "brgemm_dx", "brgemm_dw")
@@ -719,8 +750,7 @@ def test_r4_parts_time_every_routed_row_apart():
                       if chip_smoke.part_takes(p, call, shape[4])]
             simt = [p for p in takers if parts[p][1] == "simt"]
             assert len(simt) == 1 and parts[simt[0]][0] == kernel
-            own = [p for p in takers if chip_smoke.part_is_own(p)]
-            tc = [p for p in own if parts[p][1] != "simt"]
+            tc = [p for p in takers if parts[p][1] != "simt"]
             want = chip_smoke.want_route(call, torch.bfloat16, False,
                                          shape[4])
             assert [parts[p][1] for p in tc] == \
@@ -730,37 +760,16 @@ def test_r4_parts_time_every_routed_row_apart():
                 assert parts[p][2] == parts[simt[0]][2]
                 assert chip_smoke.R4_STRIDES.get(p) == \
                     chip_smoke.R4_STRIDES.get(simt[0])
-            yardsticks = [p for p in takers if p not in own]
-            assert [parts[p][1] for p in yardsticks] == (
-                ["tc", "dilate"] if call == "convkxk_dx" and shape[4] == 2
-                else [])
-            for p in yardsticks:
-                assert parts[p][0] == parts[tc[0]][0] == \
-                    "convkxk_dx_tc_phase"
-    for route in ("simt", "tc"):
+    for by_stride in (("simt", "simt"), ("tc", "tc_phase")):
         dx_s1, dx_s2 = (next(p for p in parts
                              if parts[p][1] == route
                              and parts[p][0].startswith("convkxk_dx")
                              and chip_smoke.part_takes(p, "convkxk_dx", s))
-                        for s in (1, 2))
+                        for s, route in zip((1, 2), by_stride))
         assert dx_s1 != dx_s2
         assert not any(dx_s1 in s and dx_s2 in s for s in sessions)
     assert set(r for r, _, _ in parts.values()) == \
         set(chip_smoke.RESNET_KERNELS)
-
-
-def test_r4_dilation_part_reads_the_fill_and_the_copy_apart():
-    """The dilation's part is read by a bf16 fill and a copy, symbols no
-    other part of its session holds and the lead-in's float32 fill does
-    not match; every other part is read by its row's symbol."""
-    sym = chip_smoke.part_symbols("convkxk_dx_tc_dilate")
-    assert sym == ("FillFunctor<c10::BFloat16>", "direct_copy_kernel")
-    lead_in = ("void at::native::vectorized_elementwise_kernel<4, "
-               "at::native::FillFunctor<float>, std::array<char*, 1ul> >")
-    assert not any(s in lead_in for s in sym)
-    for p, (row, _, _) in chip_smoke.R4_PARTS.items():
-        if p != "convkxk_dx_tc_dilate":
-            assert chip_smoke.part_symbols(p) == (chip_smoke.R_SYMBOLS[row],)
 
 
 @pytest.mark.parametrize("key", chip_smoke.RESNET_KERNELS)
@@ -769,7 +778,7 @@ def test_r4_rows_are_means_over_the_calls_the_step_launches_on_them(key):
     (``r4_row_parts``, all of the row's) at every ResNet-50 conv: the
     calls a bf16 step launches on the row's route, as many as its
     launches there (for the tensor-core dx the 13 stride-1 calls, for the
-    dx by phases the 3 stride-2 calls, its yardsticks' too), or, for a
+    dx by phases the 3 stride-2 calls), or, for a
     SIMT twin the step launches nowhere (the SIMT dx too), all the step's
     calls of its kernel."""
     step = chip_smoke.routes(torch.bfloat16)

@@ -9,16 +9,16 @@ kernels (interpret mode), on the CPU.
   and weight gradient, and a bf16 1x1 GEMM, to the tensor-core kernels;
   ``tiles.gemm_geometry``: at its 1x1 geometry the 3x3 kernels' plain
   versions compute the JAX ``brgemm``.
-- ``conv_fused.dx_route``, ``dilate_cotangent``, ``dx_geometry`` and
-  ``dx_phases`` (#7): the rule that sends a bf16 dx that folds nothing to
-  the tensor-core forward, at stride 1 as one conv (``"tc"``) and at a
-  larger stride as one conv a phase of dx (``"tc_phase"``), and the
-  geometries they run there: the forward conv of g with the taps flipped
-  and C and O swapped (over g dilated by the stride as the reference
-  dilates it, for ``"tc"`` launched at a stride above 1), and each
-  phase's conv of g itself with the taps that reach the phase, which a
-  brute force over the conv's products holds; the plain versions of both
-  compute the JAX ``_convkxk_dx``.
+- ``conv_fused.dx_route``, ``dx_geometry`` and ``dx_phases`` (#7): the
+  rule that sends a bf16 dx that folds nothing to the tensor-core
+  forward, at stride 1 as one conv (``"tc"``, which refuses a larger
+  stride) and at a larger stride as one conv a phase of dx
+  (``"tc_phase"``), and the geometries they run there: the forward conv
+  of g with the taps flipped and C and O swapped (over g dilated by the
+  stride, as the reference dilates it), and each phase's conv of g itself
+  with the taps that reach the phase, which a brute force over the conv's
+  products holds; the plain versions of both compute the JAX
+  ``_convkxk_dx``.
 - ``conv_fused.conv2d_bn_act`` (#4 for 1x1, #6-#8 for KxK): the output and
   the gradients of x, w, scale, bias and residual over the grid of
   ``tests/test_conv_fused.py`` (ks 1/3, stride 1/2, residual, act), odd
@@ -592,23 +592,29 @@ def test_dx_geometry_pads_g_as_the_reference(x_shape, w_shape, padding,
 
 
 @pytest.mark.parametrize("stride", [(2, 2), (2, 1), (1, 2), (3, 2)], ids=str)
-def test_dilate_cotangent_is_the_references_interior_pad(stride):
-    """g at every s-th row and column and zeros between, in g's dtype:
-    the interior part of the reference's ``lax.pad`` of g, shape and
-    values; g itself at stride (1, 1)."""
+def test_dx_tc_launch_refuses_a_stride_above_1(stride):
+    """``convkxk_dx_launch("tc")`` runs one conv of g at stride (1, 1)
+    alone: at a larger stride it raises before any launch, naming the
+    phase route that takes such a dx."""
+    n, h, wd, c, o = 1, 8, 8, 64, 64
     sh, sw = stride
-    g = torch.randn(2, 4, 5, 3).bfloat16()
-    got = pcf.dilate_cotangent(g, stride)
-    ref = jax.lax.pad(jnp.asarray(g.float().numpy()), jnp.float32(0),
-                      ((0, 0, 0), (0, 0, sh - 1), (0, 0, sw - 1), (0, 0, 0)))
-    assert got.dtype == g.dtype
-    assert tuple(got.shape) == ref.shape == (2, 3 * sh + 1, 4 * sw + 1, 3)
-    np.testing.assert_array_equal(_np(got), np.asarray(ref))
-    assert torch.equal(got[:, ::sh, ::sw], g)
-    keep = torch.zeros(got.shape, dtype=torch.bool)
-    keep[:, ::sh, ::sw] = True
-    assert not got[~keep].any()
-    assert pcf.dilate_cotangent(g, (1, 1)) is g
+    g = torch.zeros(n, (h - 1) // sh + 1, (wd - 1) // sw + 1, o,
+                    dtype=torch.bfloat16)
+    w = torch.zeros(o, c, 3, 3, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tc_phase"):
+        pcf.convkxk_dx_launch("tc", g, None, None, w, (n, h, wd, c),
+                              torch.bfloat16, stride, ((1, 1), (1, 1)),
+                              (1, 1))
+
+
+def _dilate(g, stride):
+    """g with ``stride - 1`` zeros between its rows and its columns, as the
+    reference pads it inside (``lax.pad``'s interior padding)."""
+    sh, sw = stride
+    n, oh, ow, o = g.shape
+    out = g.new_zeros((n, (oh - 1) * sh + 1, (ow - 1) * sw + 1, o))
+    out[:, ::sh, ::sw] = g
+    return out
 
 
 # (id, x_shape, o, padding, dilation, stride): 3x3 dx at small sizes: C = O
@@ -636,12 +642,13 @@ DX_TC_CASES = [
 @pytest.mark.parametrize("case", DX_TC_CASES,
                          ids=[c[0] for c in DX_TC_CASES])
 def test_dx_as_a_flipped_forward_conv_matches_the_jax_kernel(case, dt, x_dt):
-    """What the ``tc`` route runs on the card, here in its plain version:
-    g dilated by the stride (``dilate_cotangent``), then the forward conv
-    of it at ``dx_geometry`` (its pads of g on both sides) with the taps
-    flipped and C and O swapped, against the JAX ``_convkxk_dx`` in
-    interpret mode (run eagerly) and the port's plain dx: float32 within
-    1e-5, a bf16 operand within 2e-2, of max|plain|."""
+    """The reference's dx, which the ``tc`` route runs on the card at
+    stride 1, here in its plain version: g dilated by the stride
+    (``_dilate``), then the forward conv of it at ``dx_geometry`` (its pads
+    of g on both sides) with the taps flipped and C and O swapped, against
+    the JAX ``_convkxk_dx`` in interpret mode (run eagerly) and the port's
+    plain dx: float32 within 1e-5, a bf16 operand within 2e-2, of
+    max|plain|."""
     _, x_shape, o, padding, dilation, stride = case
     n, h, wd, c = x_shape
     w_shape = (o, c, 3, 3)
@@ -654,7 +661,7 @@ def test_dx_as_a_flipped_forward_conv_matches_the_jax_kernel(case, dt, x_dt):
                           padding, dilation, True)
     geo = pcf.dx_geometry(x_shape, w_shape, stride, padding, dilation)
     assert (geo[11], geo[12]) == (pads[0][0], pads[1][0])
-    gd = pcf.dilate_cotangent(tg, stride)
+    gd = _dilate(tg, stride)
     assert tuple(gd.shape) == (n, geo[1], geo[2], o)
     got = pcf.convkxk_reference(gd, tw.flip(2, 3).transpose(0, 1),
                                 padding=pads, dilation=dilation,

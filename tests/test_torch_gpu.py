@@ -3,7 +3,7 @@ forward, dQ and dK/dV backward (both routes of each, the SIMT kernel and
 the tensor-core kernel, and the rules that pick one), the fused optimizer
 update, the conv kernels (the 3x3 forward's and weight gradient's two
 routes each, the 3x3 dx's and the 1x1 GEMM's three, and the rules that
-pick one among them; the dx's phase entry's refusal of a bad plan), the
+pick one among them; the dx's phase entry on its own), the
 fused max pool, the embedding seqpool and the row LayerNorm
 against their plain versions, and the kernel launches of a tiny BERT
 step.
@@ -1047,12 +1047,12 @@ def test_dx_route_counters_follow_the_rule(cuda):
 
 
 def test_dx_tc_launch_raises_and_never_falls_back(cuda):
-    """The tensor-core dx's wrapper launches ``"tc"`` at stride 2 (over g
-    dilated by the stride, as no rule picks it) and ``"tc_phase"`` at
-    stride 1 (one phase), each matching its plain version, and counts
-    nothing; both refuse a fold, at stride 1 and 2, and float32 before any
-    launch, and their C entries C = 16: the launch raises, and no other
-    kernel or plain version runs in its place."""
+    """The tensor-core dx's wrapper launches ``"tc_phase"`` at stride 1
+    (one phase), matching its plain version, and counts nothing;
+    ``"tc"`` refuses stride 2 before any launch (the phases take it);
+    both refuse a fold and float32 before any launch (``"tc_phase"`` at
+    stride 1 and 2), and their C entries C = 16: the launch raises, and no other kernel or
+    plain version runs in its place."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     pads = ((1, 1), (1, 1))
     x, w, g = chip_smoke.r_inputs((8, 64, 64, 3, 1), 2, torch.bfloat16, cuda,
@@ -1063,24 +1063,21 @@ def test_dx_tc_launch_raises_and_never_falls_back(cuda):
                                         torch.bfloat16, cuda, 0)
     mask = torch.relu(g)
     before = _dx_routes(cf), cf.convkxk_dx.launches
-    s2 = (g2, None, None, w, x.shape, x.dtype, (2, 2), pads, (1, 1))
-    with chip_smoke.dilations() as dilated:
-        got = cf.convkxk_dx_launch("tc", *s2)
-        torch.cuda.synchronize()
-    assert dilated == [(2, 2)]
-    assert _rel_err(got, cf.convkxk_dx_reference(*s2)) < 2e-2
+    with pytest.raises(ValueError, match="tc_phase"):
+        cf.convkxk_dx_launch("tc", g2, None, None, w, x.shape, x.dtype,
+                             (2, 2), pads, (1, 1))
     s1 = (g, None, None, w, x.shape, x.dtype, (1, 1), pads, (1, 1))
     got = cf.convkxk_dx_launch("tc_phase", *s1)
     torch.cuda.synchronize()
     assert _rel_err(got, cf.convkxk_dx_reference(*s1)) < 2e-2
-    for route in ("tc", "tc_phase"):
+    for gs, stride in ((g2, (2, 2)), (g, (1, 1))):
         with pytest.raises(ValueError, match="fold"):
-            cf.convkxk_dx_launch(route, g2, torch.relu(g2), None, w, x.shape,
-                                 x.dtype, (2, 2), pads, (1, 1))
+            cf.convkxk_dx_launch("tc_phase", gs, torch.relu(gs), None, w,
+                                 x.shape, x.dtype, stride, pads, (1, 1))
         with pytest.raises(TypeError):
-            cf.convkxk_dx_launch(route, g2.float(), None, None, w.float(),
-                                 x.shape, torch.float32, (2, 2), pads,
-                                 (1, 1))
+            cf.convkxk_dx_launch("tc_phase", gs.float(), None, None,
+                                 w.float(), x.shape, torch.float32, stride,
+                                 pads, (1, 1))
     with pytest.raises(RuntimeError,
                        match="conv_kxk_dx_phase_tc launch failed"):
         cf.convkxk_dx_launch("tc_phase", g16, None, None, w16, x16.shape,
@@ -1131,52 +1128,61 @@ def test_conv2d_bn_act_3x3_bf16_backward_takes_the_tensor_core_dx(cuda):
             assert _rel_err(b.cpu(), a) < 2e-2, stride
 
 
-def test_dx_phase_entry_refuses_a_plan_that_does_not_tile_dx(cuda):
-    """``conv_kxk_dx_phase_tc`` runs only the plan ``dx_phases`` makes:
-    with a phase dropped, a padding or a dilation changed, the phases out
-    of order, or a phase without taps added, it returns
-    cudaErrorInvalidValue and writes nothing of dx; the plan itself runs
-    and matches the plain version."""
-    import ctypes
-
+def test_dx_phase_entry_derives_its_phases_and_refuses_what_it_cannot(
+        cuda):
+    """``conv_kxk_dx_phase_tc`` takes the conv's geometry alone, derives
+    its phases as ``dx_phases`` does and reads each one's taps from
+    ``phase_weights``' one tensor: at stride 2 it writes every position of
+    dx, matching the plain version; where the odd rows and columns have no
+    tap (3x3 at dilation 2 and stride 2) it writes the phase that has taps
+    and leaves the rest of dx as it was. It returns cudaErrorInvalidValue
+    and writes nothing of dx for a g other than bf16, C not a multiple of
+    64, a stride of 0 and a dx off 16 bytes."""
     from paddle_tpu_torch.kernels import conv_fused as cf
     from paddle_tpu_torch.kernels import tiles
-    shape, pads = (15, 64, 128, 3, 2), ((1, 1), (1, 1))
+    bf16 = tiles.DTYPE_CODES[torch.bfloat16]
+    shape = (15, 64, 128, 3, 2)
     x, w, g = chip_smoke.r_inputs(shape, 2, torch.bfloat16, cuda, 0)
-    args = (x.shape, w.shape, (2, 2), pads, (1, 1))
-    phases = cf.dx_phases(*args)
-    plan = [p for p in phases if p.runs]
-    wk = cf.phase_weights(w, plan)
 
-    def run(rows):
-        dx = torch.full(x.shape, 7.0, device=cuda, dtype=torch.bfloat16)
-        flat = [v for r in rows for v in r]
+    def run(geo, wk, in_dt=bf16, off=0):
+        buf = torch.full((x.numel() + 8,), 7.0, device=cuda,
+                         dtype=torch.bfloat16)
+        dx = buf[off:off + x.numel()].view(x.shape)
         err = tiles.fwd_tc_lib().conv_kxk_dx_phase_tc(
-            g.data_ptr(), wk.data_ptr(), dx.data_ptr(),
-            (ctypes.c_int * max(1, len(flat)))(*flat), len(rows),
-            tiles.geo_arg(cf.geometry(*args)), 1, 1,
-            torch.cuda.current_stream().cuda_stream)
+            g.data_ptr(), wk.data_ptr(), dx.data_ptr(), tiles.geo_arg(geo),
+            in_dt, bf16, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         return err, dx
 
-    good = [(p.a, p.b, *p.geo) for p in plan]
-    err, dx = run(good)
-    assert err == 0 and len(good) == 4
-    ref = cf.convkxk_dx_reference(g, None, None, w, x.shape, x.dtype,
-                                  (2, 2), pads, (1, 1))
-    assert _rel_err(dx, ref) < 2e-2
-    wrong_pad = [list(r) for r in good]
-    wrong_pad[1][13] += 1
-    wrong_dil = [list(r) for r in good]
-    wrong_dil[3][15] = 2
-    empty = cf.dx_phases(x.shape, w.shape, (2, 2), ((2, 2), (2, 2)),
-                         (2, 2))[1]
-    assert not empty.runs
-    for rows in (good[1:], good[:3], wrong_pad, wrong_dil, good[::-1],
-                 good + [(empty.a, empty.b, *empty.geo)]):
-        err, dx = run(rows)
-        assert err == 1
-        assert bool((dx == 7.0).all())
+    for pad, dil, n_run in ((((1, 1), (1, 1)), (1, 1), 4),
+                            (((2, 2), (2, 2)), (2, 2), 1)):
+        args = (x.shape, w.shape, (2, 2), pad, dil)
+        phases = cf.dx_phases(*args)
+        plan = [p for p in phases if p.runs]
+        assert len(plan) == n_run
+        wk = cf.phase_weights(w, plan)
+        err, dx = run(cf.geometry(*args), wk)
+        assert err == 0
+        ref = cf.convkxk_dx_reference(g, None, None, w, x.shape, x.dtype,
+                                      (2, 2), pad, dil)
+        for p in phases:
+            got = dx[:, p.a::2, p.b::2]
+            if p.runs:
+                assert _rel_err(got, ref[:, p.a::2, p.b::2]) < 2e-2, p
+            else:
+                assert bool((got == 7.0).all()), p
+    geo = cf.geometry(x.shape, w.shape, (2, 2), ((1, 1), (1, 1)), (1, 1))
+    wk = cf.phase_weights(w, [p for p in cf.dx_phases(
+        x.shape, w.shape, (2, 2), ((1, 1), (1, 1)), (1, 1)) if p.runs])
+    c96 = list(geo)
+    c96[3] = 96
+    s0 = list(geo)
+    s0[9] = 0
+    for bad in ({"in_dt": tiles.DTYPE_CODES[torch.float32]},
+                {"geo": c96}, {"geo": s0}, {"off": 1}):
+        err, dx = run(**{"geo": geo, "wk": wk, **bad})
+        assert err == 1, bad
+        assert bool((dx == 7.0).all()), bad
 
 
 # -- brgemm's tensor-core routes (the tensor-core conv kernels at 1x1) ---------
